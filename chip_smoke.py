@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py          # from the repository root, one GPU
+
+Builds the hand-written CUDA kernels from the sources in this checkout and
+runs four phases; any failure exits non-zero before the result line.
+
+1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
+   the kernel build time (one nvcc per source, started together).
+2. Each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it (smollm-135m: d = 64 -> 2 words,
+   9 heads, 3 kv heads, 16-token pages, bf16 V, 4 slots, 4096-token
+   tables, 512-token prefill chunks), with ragged lengths, a partially
+   valid query tile, idle rows (q_length 0), -1 table entries, shuffled
+   pages and count-0 blocks. Outputs are float32: allclose at atol 1e-5,
+   rtol 1e-4 (the kernel skips the softmax max subtraction and sums in
+   another order). Prints error, kernel and plain times (CUDA events) and
+   the bound (least time the card could take for the same work).
+3. Cross-device: smollm-135m widths at 2 layers in float32, the same
+   seeded weights on the CPU (plain versions) and on the card (kernels):
+   first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
+   another order through two layers, where a key's sign bit can flip)
+   and equal greedy tokens.
+4. The slice at full size: smollm-135m, all 30 layers, bf16, seeded
+   random weights, paged (16-token pages), prefill chunks of 512, 4
+   slots, 8 staggered requests with 512-3072-token prompts and 32 new
+   tokens each, max_len 4096 (top-N = 479). Launch counts are zeroed just
+   before and read just after; each kernel must run 30 times per step.
+
+Then the kernel record line and, last, the result line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12        # float32 outside the tensor cores
+TOL = dict(atol=1e-5, rtol=1e-4)
+CROSS_TOL = dict(atol=2e-3, rtol=2e-3)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the card and the build
+# ---------------------------------------------------------------------------
+
+def phase1() -> str:
+    import torch
+    from repro_torch.kernels import build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi: unavailable"
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"phase 1: built {len(build.SOURCES)} kernels in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, text in logs.items():
+        regs = [ln.split("ptxas info    : ")[-1] for ln in text.splitlines()
+                if "registers" in ln]
+        log(f"  {name}: {'; '.join(regs)}")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels vs plain versions at serving shapes
+# ---------------------------------------------------------------------------
+
+B, H, HK, D, DV, PAGE, NB, CHUNK, NSEL = 4, 9, 3, 64, 64, 16, 256, 512, 479
+G, W, T_MAX = H // HK, 2, NB * PAGE
+SCALE = 0.125                     # (sigma_q * sigma_k) * 64 ** -0.5
+
+
+def _bits(shape, gen):
+    import torch
+    from repro_torch.core import hamming
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return hamming.pack_bits(x).contiguous()
+
+
+def _prefill_case(gen, lens):
+    """lens: per slot (q_offset, q_length); kv_length = offset + length."""
+    import torch
+    q = _bits((B * H, CHUNK, D), gen)
+    k = _bits((B * HK, T_MAX, D), gen)
+    v = torch.randn((B * HK, T_MAX, DV), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    qoff = torch.tensor([o for o, _ in lens], dtype=torch.int32,
+                        device="cuda").repeat_interleave(H)
+    qlen = torch.tensor([n for _, n in lens], dtype=torch.int32,
+                        device="cuda").repeat_interleave(H)
+    return q, k, v, qoff + qlen, qoff, qlen
+
+
+def _prefill_work(q, k, kvl, qoff, qlen):
+    """(bytes, ops) the prefill function needs for these inputs."""
+    import torch
+    from repro_torch.core import hamming, topn
+    kb = torch.repeat_interleave(k, G, dim=0)
+    s = hamming.binary_scores(q, kb, D)                     # [BH, S, T]
+    qi = torch.arange(CHUNK, device="cuda")[None, :, None]
+    kp = torch.arange(T_MAX, device="cuda")[None, None, :]
+    valid = ((kp < kvl[:, None, None]) & (kp <= qoff[:, None, None] + qi)
+             & (qi < qlen[:, None, None]))
+    keep = topn.topn_mask_binary(s, NSEL, D, valid=valid)
+    kv_keys = valid.reshape(B * HK, G * CHUNK, T_MAX).any(1).sum().item()
+    v_keys = keep.reshape(B * HK, G * CHUNK, T_MAX).any(1).sum().item()
+    n_valid, n_kept = valid.sum().item(), keep.sum().item()
+    nbytes = (qlen.sum().item() * W * 4 + kv_keys * W * 4 + v_keys * DV * 2
+              + B * H * CHUNK * DV * 4 + 3 * B * H * 4)
+    nops = n_kept * (2 * DV + 1) + n_valid * (2 * W + 2)
+    return nbytes, nops
+
+
+def _paged_case(gen, lengths):
+    import torch
+    n_pages = B * NB
+    q = _bits((B, H, D), gen)
+    k_pool = _bits((n_pages + 1, HK, PAGE, D), gen).transpose(-1, -2) \
+        .contiguous()
+    v_pool = torch.randn((n_pages + 1, HK, PAGE, DV), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    bt = perm.reshape(B, NB).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    used = (lens + PAGE - 1) // PAGE
+    bt = torch.where(torch.arange(NB, device="cuda")[None] < used[:, None],
+                     bt, -1)
+    return q, k_pool, v_pool, bt, lens
+
+
+def _paged_work(q, k_pool, v_pool, bt, lens):
+    import torch
+    from repro_torch.core import hamming, topn
+    from repro_torch.kernels import ref
+    k_rows, _ = ref.gather_rows(k_pool, v_pool, bt)        # [B, Hk, T, W]
+    s = hamming.binary_scores(q.reshape(B, HK, G, W), k_rows, D)
+    valid = (torch.arange(T_MAX, device="cuda")[None, None, None]
+             < lens[:, None, None, None]).expand_as(s)
+    keep = topn.topn_mask_binary(s, NSEL, D, valid=valid)
+    n_keys = lens.sum().item() * HK
+    v_keys = keep.any(2).sum().item()
+    nbytes = (B * H * W * 4 + n_keys * W * 4 + v_keys * DV * 2
+              + 2 * B * HK * NB * 4 + B * H * DV * 4)
+    nops = keep.sum().item() * (2 * DV + 1) + n_keys * G * (2 * W + 2)
+    return nbytes, nops
+
+
+def phase2() -> dict:
+    import torch
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = {}
+
+    # K1. "main": the last 512-token chunk of a 3072-token prompt in slot 0,
+    # the three other slots idle (q_length 0) as in every prefill step.
+    # "edges": ragged offsets, a partial query tile (300 = 4*64 + 44).
+    cases = {"main": [(2560, 512), (0, 0), (0, 0), (0, 0)],
+             "edges": [(1024, 300), (0, 512), (37, 1), (0, 0)]}
+    err, timed = 0.0, None
+    for name, lens in cases.items():
+        q, k, v, kvl, qoff, qlen = _prefill_case(gen, lens)
+        kw = dict(d=D, nsel=NSEL, scale=SCALE, kv_length=kvl, q_offset=qoff,
+                  q_length=qlen)
+        got = pre.prefill_attention(q, k, v, group_size=G, n_kv_heads=HK,
+                                    **kw)
+        want = ref.prefill_attention_ref(q, k, v, group_size=G, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        err = max(err, (got - want).abs().max().item())
+        log(f"phase 2: K1 prefill [{name}] max_abs_err "
+            f"{(got - want).abs().max().item():.3e}")
+        if name == "main":
+            timed = (q, k, v, kw)
+    q, k, v, kw = timed
+    ms = cuda_ms(lambda: pre.prefill_attention(
+        q, k, v, group_size=G, n_kv_heads=HK, **kw), iters=50)
+    plain_ms = cuda_ms(lambda: ref.prefill_attention_ref(
+        q, k, v, group_size=G, **kw), iters=3, warmup=1)
+    b_ms, b_by = bound(*_prefill_work(q, k, kw["kv_length"], kw["q_offset"],
+                                      kw["q_length"]))
+    records[pre.NAME] = dict(
+        name=pre.NAME, route="cuda",
+        source="src/repro_torch/kernels/csrc/binary_prefill_attention.cu",
+        replaces="src/repro/kernels/binary_prefill_attention.py:106",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log(f"phase 2: K1 prefill {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by})")
+
+    # K2: 4 decoding slots, ragged lengths, shuffled pages, -1 past each
+    # row's pages (count-0 blocks)
+    err = 0.0
+    for lengths in ([3104, 1537, 600, 33], [4095, 1, 17, 2048]):
+        q, k_pool, v_pool, bt, lens = _paged_case(gen, lengths)
+        kw = dict(d=D, nsel=NSEL, scale=SCALE)
+        got = ops.paged_decode_attention(q, k_pool, v_pool, bt, lengths=lens,
+                                         **kw)
+        want = ref.paged_decode_attention_ref(
+            q.reshape(B, HK, G, W), k_pool, v_pool, bt, lengths=lens,
+            **kw).reshape(B, H, DV)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        err = max(err, (got - want).abs().max().item())
+        log(f"phase 2: K2 paged decode lengths {lengths} max_abs_err "
+            f"{(got - want).abs().max().item():.3e}")
+    q, k_pool, v_pool, bt, lens = _paged_case(gen, [3104, 1537, 600, 33])
+    bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
+    qf = q.reshape(B * HK, G, W).contiguous()
+    ms = cuda_ms(lambda: pdec.paged_decode_attention(
+        qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE),
+        iters=200)
+    plain_ms = cuda_ms(lambda: ref.paged_decode_attention_ref(
+        q.reshape(B, HK, G, W), k_pool, v_pool, bt, d=D, nsel=NSEL,
+        scale=SCALE, lengths=lens), iters=10, warmup=2)
+    b_ms, b_by = bound(*_paged_work(q, k_pool, v_pool, bt, lens))
+    records[pdec.NAME] = dict(
+        name=pdec.NAME, route="cuda",
+        source="src/repro_torch/kernels/csrc/binary_paged_decode_attention.cu",
+        replaces="src/repro/kernels/binary_paged_decode_attention.py:109",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log(f"phase 2: K2 paged decode {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.5f} ms by {b_by})")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the same weights on the CPU and on the card
+# ---------------------------------------------------------------------------
+
+def _engine(cfg, model, scfg_kw, device, telemetry=None):
+    from repro_torch.serve import Engine, ServeConfig
+    return Engine(cfg, model, ServeConfig(**scfg_kw), telemetry=telemetry,
+                  device=device)
+
+
+def phase3() -> None:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-135m", n_layers=2, param_dtype="float32")
+    cpu_model = T.init_params(cfg, torch.Generator().manual_seed(1))
+    gpu_model = T.init_params(cfg, torch.Generator().manual_seed(1),
+                              device="cuda")
+    # first step: one prefill chunk through serve_step on both devices
+    n_pages, page, chunk = 8, 16, 64
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, cfg.vocab_size, (2, chunk)).astype(np.int32)
+    args = dict(pos=np.array([0, 0], np.int32),
+                block_tables=np.array([[2, 5, 0, 6], [1, 3, 7, -1]],
+                                      np.int32),
+                active=np.array([True, True]),
+                n_valid=np.array([chunk, 41], np.int32))
+    logits = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        caches = T.init_caches(cfg, n_pages=n_pages, page_size=page,
+                               device=dev)
+        out = T.serve_step(
+            model, torch.from_numpy(tok).to(dev), caches, n=16,
+            logits_mode="last",
+            **{k: torch.from_numpy(v).to(dev) for k, v in args.items()})
+        logits.append(out.cpu())
+    diff = (logits[0] - logits[1]).abs().max().item()
+    torch.testing.assert_close(logits[1], logits[0], **CROSS_TOL)
+    log(f"phase 3: first-step logits cpu vs cuda max_abs_diff {diff:.3e}")
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 130, 41)]
+    scfg = dict(max_len=160, batch_slots=2, prefill_chunk=64, paged=True,
+                page_size=16)
+    outs = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        outs.append(_engine(cfg, model, scfg, dev).generate(prompts, 8))
+    check((outs[0] == outs[1]).all(), (outs[0], outs[1]))
+    log(f"phase 3: greedy tokens equal on cpu and cuda: {outs[1].tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice at full size
+# ---------------------------------------------------------------------------
+
+def phase4() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Telemetry
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    log(f"phase 4: {cfg.name} {cfg.n_layers} layers {cfg.param_dtype}, "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    tel = Telemetry()
+    eng = _engine(cfg, model, dict(max_len=4096, batch_slots=4,
+                                   prefill_chunk=512, paged=True,
+                                   page_size=16), "cuda", telemetry=tel)
+    check(eng.n == NSEL, eng.n)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 3073, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    gen = 32
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=gen) for p in prompts[:4]]
+    results, steps, nxt, metrics = {}, 0, 4, []
+    while eng.queue or any(s.request is not None for s in eng.slots) \
+            or nxt < len(prompts):
+        for fr in eng.step():
+            results[fr.request_id] = fr.tokens
+        metrics += eng.pop_finished_metrics()
+        steps += 1
+        if nxt < len(prompts) and steps % 4 == 0:   # staggered arrivals
+            ids.append(eng.submit(prompts[nxt], max_new_tokens=gen))
+            nxt += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    metrics += eng.pop_finished_metrics()
+    eng.check()
+    st = eng.stats
+    check(sorted(results) == sorted(ids) and len(ids) == len(prompts),
+          "every request finishes")
+    for rid in ids:
+        toks = results[rid]
+        check(toks.shape == (gen,), (rid, toks.shape))
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), rid)
+    check(counts[pre.NAME] > 0 and counts[pdec.NAME] > 0, counts)
+    check(counts[pre.NAME] == cfg.n_layers * st["prefill_chunks"], counts)
+    check(counts[pdec.NAME] == cfg.n_layers * st["decode_steps"], counts)
+    ttft = np.array([m.ttft for m in metrics]) * 1e3
+    itl = np.array([x for m in metrics for x in m.itl]) * 1e3
+    log(f"phase 4: prompts {lens.tolist()}, {gen} new tokens each; "
+        f"{steps} steps, {st['prefill_chunks']} prefill chunks, "
+        f"{st['decode_steps']} decode steps, launches {counts}")
+    log(f"phase 4: wall {wall:.3f} s, {st['tokens_generated'] / wall:.2f} "
+        f"generated tok/s, TTFT p50/p95 {np.percentile(ttft, 50):.2f}/"
+        f"{np.percentile(ttft, 95):.2f} ms, ITL p50/p95 "
+        f"{np.percentile(itl, 50):.2f}/{np.percentile(itl, 95):.2f} ms, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return counts, eng
+
+
+def profile_windows(eng, out_dir: str) -> None:
+    """Device time by kernel in two windows of the full-size engine, each
+    run twice -- once timed on the host clock, once under torch.profiler:
+    the prefill of one 3072-token prompt into the idle engine (6 chunks in
+    one step: the budget lifts when no slot decodes), and 8 decode steps
+    of 4 slots at ~3.1k-token contexts. Busy share = device kernel time
+    under the profiler / host wall of the unprofiled twin. Writes each
+    window's op table to `out_dir`."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(1)
+
+    def prompt():
+        return rng.integers(0, eng.cfg.vocab_size, 3072).astype(np.int32)
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def window(name, n, setup):
+        setup()
+        wall = steps(n)
+        setup()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps(n)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+
+        def dev(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+        busy = sum(dev(e) for e in kernels)
+        groups: dict[str, float] = {}
+        for e in kernels:
+            key = ("K1 prefill_kernel" if "prefill_kernel" in e.key else
+                   "K2 paged_decode_kernel" if "paged_decode" in e.key else
+                   "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key
+                   else "gemm" if any(t in e.key for t in
+                                      ("gemm", "nvjet", "cutlass", "sm90"))
+                   else "other elementwise/reduce/index")
+            groups[key] = groups.get(key, 0.0) + dev(e)
+        with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                              row_limit=80))
+        log(f"profile {name}: {n} steps, wall {wall:.3f} ms, device "
+            f"{busy:.3f} ms, busy {busy / wall:.3f}; " + "; ".join(
+                f"{k} {v:.3f} ms" for k, v in
+                sorted(groups.items(), key=lambda kv: -kv[1])))
+
+    window("prefill_3072", 1, lambda: eng.submit(prompt(), max_new_tokens=1))
+    for _ in range(4):
+        eng.submit(prompt(), max_new_tokens=64)
+    while eng.queue or any(s.prefilling for s in eng.slots):
+        eng.step()
+    window("decode_4x3k", 8, lambda: None)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="after phase 4, profile a prefill and a decode "
+                         "window of the full-size engine into DIR")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the GPU "
+              "port and has no CPU mode", file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable from {ROOT}/src "
+              f"({e}); run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = phase1()
+        records = phase2()
+        phase3()
+        counts, eng = phase4()
+        if args.profile:
+            profile_windows(eng, args.profile)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    for name, rec in records.items():
+        rec["launches"] = counts[name]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(card)
+    log(json.dumps({"kernels": [{k: rec[k] for k in keys}
+                                for rec in records.values()]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

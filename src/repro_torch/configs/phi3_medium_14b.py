@@ -1,0 +1,20 @@
+"""Phi-3 Medium 14B: dense GQA, RoPE + SwiGLU. [arXiv:2404.14219]
+
+40L d_model=5120 40H (GQA kv=10, head_dim 128) d_ff=17920 vocab=100352.
+"""
+from repro_torch.models.config import HADConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    head_dim=128,
+    d_ff=17920,
+    vocab_size=100352,
+    had=HADConfig(),
+    trainable="all",
+    remat=True,
+)

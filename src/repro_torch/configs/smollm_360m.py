@@ -1,0 +1,20 @@
+"""SmolLM 360M: llama-arch small dense GQA. [hf:HuggingFaceTB/SmolLM; hf]
+
+32L d_model=960 15H (GQA kv=5, head_dim 64) d_ff=2560 vocab=49152.
+"""
+from repro_torch.models.config import HADConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m",
+    family="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    head_dim=64,
+    d_ff=2560,
+    vocab_size=49152,
+    had=HADConfig(),
+    trainable="all",
+    remat=True,
+)

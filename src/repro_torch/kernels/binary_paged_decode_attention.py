@@ -1,0 +1,77 @@
+"""HAD decode attention over the paged KV cache: the CUDA kernel's wrapper.
+
+Port of ``repro.kernels.binary_paged_decode_attention.paged_decode_attention``
+(see ``csrc/binary_paged_decode_attention.cu`` for the kernel's design).
+The signature mirrors the Pallas call: per-(slot, kv-head) ROW block tables
+and per-block valid counts, so a compacted table (page-sparse decode) can
+reuse the kernel unchanged. Its plain version is
+``repro_torch.kernels.ref.paged_decode_attention_ref``; the ops layer
+picks between the two by tensor device.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "binary_paged_decode_attention"
+# launches of the CUDA kernel (plain integer; reset it to 0 before a run)
+launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _fn():
+    fn = build.load(NAME).had_paged_decode_attention
+    fn.argtypes = [_P] * 6 + [_I] * 10 + [_F, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           counts: torch.Tensor, *, d: int, nsel: int,
+                           scale: float) -> torch.Tensor:
+    """Launch the paged decode kernel.
+
+    q_bits [R, G, W] int32 (R = B*Hk rows); k_pool [n_pages, Hk, W, page]
+    int32 bit-planes; v_pool [n_pages, Hk, page, Dv] float32 or bfloat16;
+    block_tables / counts [R, nb] int32 (row tables, valid tokens per listed
+    block). Table entries outside [0, n_pages) are treated as count 0.
+    Returns [R, G, Dv] float32.
+    """
+    global launches
+    r, g, w = q_bits.shape
+    n_pages, hk, w2, page = k_pool.shape
+    _, hk2, page2, dv = v_pool.shape
+    nb = block_tables.shape[1]
+    if not (w == w2 and hk == hk2 and page == page2
+            and v_pool.shape[0] == n_pages and r % hk == 0
+            and block_tables.shape == counts.shape == (r, nb)):
+        raise ValueError(f"shape mismatch: q {tuple(q_bits.shape)} k_pool "
+                         f"{tuple(k_pool.shape)} v_pool {tuple(v_pool.shape)} "
+                         f"tables {tuple(block_tables.shape)} counts "
+                         f"{tuple(counts.shape)}")
+    for name, t in (("q_bits", q_bits), ("k_pool", k_pool),
+                    ("block_tables", block_tables), ("counts", counts)):
+        if t.dtype != torch.int32 or t.device != q_bits.device or \
+                not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{q_bits.device} (a CUDA device)")
+    if v_pool.dtype not in (torch.float32, torch.bfloat16) or \
+            v_pool.device != q_bits.device or not v_pool.is_contiguous():
+        raise ValueError("v_pool must be a contiguous float32/bfloat16 "
+                         "CUDA tensor")
+    out = torch.empty((r, g, dv), dtype=torch.float32, device=q_bits.device)
+    stream = torch.cuda.current_stream(q_bits.device).cuda_stream
+    err = _fn()(q_bits.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                r, g, w, page, dv, nb, hk, n_pages, d, int(nsel),
+                float(scale), int(v_pool.dtype == torch.bfloat16), stream)
+    build.check(err, NAME)
+    launches += 1
+    return out

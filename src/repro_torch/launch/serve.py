@@ -1,0 +1,144 @@
+"""Serving launcher for the PyTorch port: continuous-batching HAD inference
+over the paged packed-bit K cache, with staggered mixed-length requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --paged                          # on the GPU (the default device)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --paged --device cpu --prompt-len 16 --gen 4
+
+Weights are random, drawn from --seed. This slice serves the binary paged
+path only; the JAX launcher's --baseline, --swap-pages, --page-topn,
+--async and --mesh-model options wait for later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.transformer import init_params
+from repro_torch.serve import Engine, SamplingParams, ServeConfig, Telemetry
+from repro_torch.serve.runner import resolve_device
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain kernel versions)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (required: the only cache this "
+                         "slice of the port serves)")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="mean prompt length")
+    ap.add_argument("--len-spread", type=float, default=0.5,
+                    help="prompt lengths drawn from mean*(1±spread)")
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="total requests (default: 2x slots)")
+    ap.add_argument("--stagger", type=int, default=2,
+                    help="submit a new request every K steps (0: all up "
+                         "front)")
+    ap.add_argument("--prefill-chunk", type=int, default=512)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="page pool size (0: dense-equivalent capacity)")
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--policy", choices=("fcfs", "shortest-prompt"),
+                    default="fcfs")
+    ap.add_argument("--victim-policy", choices=("youngest", "longest-idle"),
+                    default="youngest")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--metrics", action="store_true",
+                    help="print TTFT/ITL percentiles (enables telemetry, "
+                         "device-fenced step timings)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not (args.paged or args.prefix_cache):
+        raise SystemExit("repro_torch serves the paged KV cache only: pass "
+                         "--paged (the dense cache is on the ROADMAP)")
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                        device=device)
+    n_req = args.requests or 2 * args.slots
+    rng = np.random.default_rng(args.seed)
+    lo = max(1, int(args.prompt_len * (1 - args.len_spread)))
+    hi = max(lo + 1, int(args.prompt_len * (1 + args.len_spread)) + 1)
+    lens = rng.integers(lo, hi, size=n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in lens]
+    max_len = int(max(lens)) + args.gen
+    telemetry = Telemetry(fence=True) if args.metrics else None
+    eng = Engine(cfg, model, ServeConfig(
+        max_len=max_len, batch_slots=args.slots,
+        prefill_chunk=args.prefill_chunk, binary=True, paged=True,
+        page_size=args.page_size, n_pages=args.n_pages or None,
+        policy=args.policy, prefix_cache=args.prefix_cache,
+        victim_policy=args.victim_policy), telemetry=telemetry,
+        device=device)
+    sampling = SamplingParams(temperature=args.temperature,
+                              top_k=args.top_k, seed=args.seed)
+
+    t0 = time.perf_counter()
+    results: dict[int, np.ndarray] = {}
+    ids: list[int] = []
+    warm = args.slots if args.stagger else n_req
+    for i in range(warm):
+        ids.append(eng.submit(prompts[i], max_new_tokens=args.gen,
+                              sampling=sampling))
+    next_req, steps, req_metrics = warm, 0, []
+    while (eng.queue or any(s.request is not None for s in eng.slots)
+           or next_req < n_req):
+        for fr in eng.step():
+            results[fr.request_id] = fr.tokens
+        req_metrics += eng.pop_finished_metrics()
+        steps += 1
+        if args.stagger and next_req < n_req and steps % args.stagger == 0:
+            ids.append(eng.submit(prompts[next_req], max_new_tokens=args.gen,
+                                  sampling=sampling))
+            next_req += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    req_metrics += eng.pop_finished_metrics()
+    eng.check()
+
+    gen_tok = eng.stats["tokens_generated"]
+    print(f"arch={cfg.name} device={device} N={eng.n} slots={args.slots} "
+          f"requests={n_req} prompt_lens={lens.tolist()} gen={args.gen}")
+    for rid in ids:
+        print(f"  req {rid}: {results[rid].tolist()}")
+    print(f"wall {dt:.2f}s  decode_steps={eng.stats['decode_steps']} "
+          f"prefill_chunks={eng.stats['prefill_chunks']} "
+          f"({gen_tok / dt:.1f} generated tok/s)")
+    a = eng.allocator
+    print(f"kv pool: peak {a.peak_in_use}/{a.n_pages} pages x {a.page_size} "
+          f"tok, {eng.stats['preemptions']} preemptions, max "
+          f"{eng.stats['max_residents']} concurrent residents")
+    if args.prefix_cache:
+        print(f"prefix cache: {eng.stats['cached_tokens']} prompt tok "
+              f"served from cached pages")
+    if telemetry is not None:
+        def pcts(xs):
+            if not xs:
+                return "n/a"
+            ms = np.asarray(xs, np.float64) * 1e3
+            p = [float(np.percentile(ms, q)) for q in (50, 95, 99)]
+            return f"{p[0]:.1f}/{p[1]:.1f}/{p[2]:.1f} ms"
+
+        ttft = [m.ttft for m in req_metrics if m.ttft is not None]
+        itl = [s for m in req_metrics for s in m.itl]
+        print(f"latency (p50/p95/p99): TTFT {pcts(ttft)} | ITL {pcts(itl)}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

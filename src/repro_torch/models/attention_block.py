@@ -1,0 +1,180 @@
+"""GQA attention block, serving half, binary paged path (torch twin of the
+serving code in ``repro.models.attention_block``).
+
+Keys and queries are binarized after RoPE and packed to 32-bit words; the
+K cache is a shared pool of bit-plane pages and V a pool of pages in the
+model dtype, addressed through per-slot block tables. Prefill chunks
+gather every slot's pages into rows and run the prefill kernel; decode
+steps read pages in place through the paged decode kernel. Both go
+through ``repro_torch.kernels.ops``, which dispatches by tensor device.
+
+The pools are updated IN PLACE (index_put_), unlike the JAX package's
+functional `.at[].set`, so a step never copies a pool.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core import hamming
+from repro_torch.kernels import ops
+from repro_torch.models import common
+from repro_torch.models.config import ModelConfig
+
+
+class Attention(nn.Module):
+    """wq/wk/wv/wo ([in, out], as in the JAX tree) plus the frozen
+    binarization scales sigma_q/sigma_k (buffers)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+        dt = cfg.dtype
+
+        def weight(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
+                                requires_grad=False)
+
+        self.wq = weight(d, h * dh)
+        self.wk = weight(d, hk * dh)
+        self.wv = weight(d, hk * dh)
+        self.wo = weight(h * dh, d)
+        sigma = torch.tensor(cfg.had.sigma_init, dtype=torch.float32)
+        self.register_buffer("sigma_q", sigma.clone().to(device))
+        self.register_buffer("sigma_k", sigma.clone().to(device))
+        self.dh = dh
+        self.refresh_scale()
+
+    def refresh_scale(self) -> None:
+        """Recompute the float32 logit scale (sigma_q * sigma_k) * dh^-0.5
+        from the sigma buffers. Called once when the weights are set, so
+        the serving hot path never reads a device scalar back."""
+        sq = np.float32(self.sigma_q.item())
+        sk = np.float32(self.sigma_k.item())
+        self.scale = float(np.float32(sq * sk) * np.float32(self.dh ** -0.5))
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
+                     device=None) -> dict:
+    """One layer's page pools: k_bits [n_pages+1, Hk, W, page] int32
+    bit-planes and v [n_pages+1, Hk, page, Dh] in the model dtype. Page
+    ``n_pages`` is a trash page that absorbs dropped writes; no block
+    table ever names it, and pages [0, n_pages) match the JAX pools."""
+    hk, dh = cfg.n_kv_heads, cfg.dh
+    w = hamming.packed_words(dh)
+    return {
+        "k_bits": torch.zeros((n_pages + 1, hk, w, page_size),
+                              dtype=torch.int32, device=device),
+        "v": torch.zeros((n_pages + 1, hk, page_size, dh), dtype=cfg.dtype,
+                         device=device),
+    }
+
+
+def _paged_cache_write(pool: torch.Tensor, new: torch.Tensor,
+                       pos: torch.Tensor, bt: torch.Tensor, *,
+                       offset_axis: int, n_valid: torch.Tensor | None = None,
+                       active: torch.Tensor | None = None) -> None:
+    """Scatter per-token values into a page pool through the block table.
+
+    pool [n_pages+1, ...] with the in-page offset at `offset_axis`; new
+    [B, S, ...]; pos [B] position of new[:, 0] per slot; bt [B, nb] RAW
+    block table (-1 = unallocated). Token (b, j) lands at page
+    bt[b, (pos_b+j) // page], offset (pos_b+j) % page. Padding tokens
+    (j >= n_valid[b]), inactive rows, positions past the table and -1
+    entries under a valid token are routed to the trash page -- no host
+    sync, no boolean filtering.
+    """
+    b, s = new.shape[:2]
+    page = pool.shape[offset_axis]
+    trash = pool.shape[0] - 1
+    nb = bt.shape[1]
+    steps = torch.arange(s, device=pool.device)
+    gpos = pos.to(torch.int64)[:, None] + steps[None]              # [B, S]
+    logical = torch.div(gpos, page, rounding_mode="floor")
+    off = gpos - logical * page
+    phys = torch.gather(bt.to(torch.int64), 1, logical.clamp(0, nb - 1))
+    ok = logical < nb
+    if n_valid is not None:
+        ok = ok & (steps[None] < n_valid.to(torch.int64)[:, None])
+    if active is not None:
+        ok = ok & active[:, None]
+    phys = torch.where(ok & (phys >= 0), phys, trash)
+    idx: list = [phys.reshape(-1)] + [slice(None)] * (pool.ndim - 1)
+    idx[offset_axis] = off.reshape(-1)
+    pool[tuple(idx)] = new.reshape((b * s,) + new.shape[2:]).to(pool.dtype)
+
+
+def gather_pages(pool: torch.Tensor, bt: torch.Tensor,
+                 axis: int) -> torch.Tensor:
+    """Block-table gather: pool [n_pages, ...] -> contiguous [B, ...] rows.
+
+    `axis` is the token axis of the contiguous layout (pages land there,
+    merged with the in-page offset axis). bt must be clamped (>= 0);
+    pages past a slot's valid length carry garbage that callers mask.
+    """
+    g = pool[bt.to(torch.int64)]                   # [B, NB, *pool.shape[1:]]
+    g = torch.movedim(g, 1, axis)                  # NB beside the page axis
+    shape = g.shape
+    return g.reshape(shape[:axis] + (shape[axis] * shape[axis + 1],)
+                     + shape[axis + 2:])
+
+
+def _update_binary_cache_paged(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                               pos: torch.Tensor, bt: torch.Tensor,
+                               n_valid: torch.Tensor | None = None,
+                               active: torch.Tensor | None = None) -> None:
+    """k, v [B, Hk, S, Dh] scattered into the pools in place."""
+    kb = hamming.pack_bits(k.to(torch.float32))            # [B, Hk, S, W]
+    _paged_cache_write(cache["k_bits"], kb.permute(0, 2, 1, 3), pos, bt,
+                       offset_axis=3, n_valid=n_valid, active=active)
+    _paged_cache_write(cache["v"], v.transpose(1, 2), pos, bt, offset_axis=2,
+                       n_valid=n_valid, active=active)
+
+
+def _out(p: Attention, ctx: torch.Tensor) -> torch.Tensor:
+    b, h, s, dh = ctx.shape
+    y = ctx.transpose(1, 2).reshape(b, s, h * dh)
+    return y.to(p.wo.dtype) @ p.wo
+
+
+def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
+               cache: dict, pos: torch.Tensor, n: int,
+               block_tables: torch.Tensor,
+               n_valid: torch.Tensor | None = None,
+               active: torch.Tensor | None = None) -> torch.Tensor:
+    """Prefill chunk (S > 1) or decode step (S == 1), binary paged path.
+
+    x [B, S, D]; pos [B] per-slot position of x[:, 0]; block_tables
+    [B, nb] raw table; n_valid [B] real tokens per row of a padded chunk
+    (the valid cache length becomes pos + n_valid); active [B] rows whose
+    writes land. Updates `cache` in place and returns y [B, S, D].
+    """
+    b, s, _ = x.shape
+    dh, h, hk = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p.wq).reshape(b, s, h, dh).transpose(1, 2)
+    k = (x @ p.wk).reshape(b, s, hk, dh).transpose(1, 2)
+    v = (x @ p.wv).reshape(b, s, hk, dh).transpose(1, 2)
+    q_pos = pos.to(torch.int64)[:, None] + torch.arange(s, device=x.device)
+    if cfg.pos == "rope":
+        q = common.apply_rope(q, q_pos, theta=cfg.rope_theta)
+        k = common.apply_rope(k, q_pos, theta=cfg.rope_theta)
+    # writes see the RAW table (a -1 under a valid token is dropped);
+    # reads clamp -1 to page 0, which only ever lies past a row's length
+    bt = block_tables.clamp_min(0)
+    _update_binary_cache_paged(cache, k, v, pos, block_tables,
+                               n_valid=n_valid, active=active)
+    kv_len = pos + (s if n_valid is None else n_valid)
+    qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
+    if s == 1:
+        y = ops.paged_decode_attention(
+            qb[:, :, 0], cache["k_bits"], cache["v"], block_tables, d=dh,
+            nsel=n, scale=p.scale, lengths=kv_len)[:, :, None]
+    else:
+        k_rows = gather_pages(cache["k_bits"], bt, 3)      # [B, Hk, W, T]
+        v_rows = gather_pages(cache["v"], bt, 2)           # [B, Hk, T, Dh]
+        y = ops.prefill_attention(
+            qb, ops.to_bitplanes(k_rows), v_rows, d=dh, nsel=n,
+            scale=p.scale, kv_length=kv_len, q_offset=pos, q_length=n_valid,
+            causal=cfg.causal)
+    return _out(p, y.to(x.dtype))

@@ -1,0 +1,77 @@
+"""Shared building blocks (torch twin of ``repro.models.common``).
+
+Weights keep the JAX package's [in, out] layout, so activations multiply
+them on the right (``x @ w``) exactly as the JAX code does.
+"""
+from __future__ import annotations
+
+import torch
+
+# ---------------------------------------------------------------------------
+# init helpers (torch.Generator; the numbers differ from jax.random's)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(shape, dtype, *, generator: torch.Generator) -> torch.Tensor:
+    """Truncated-normal (+-2 sigma) init at fan-in std."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    x = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(x, std=1.0, a=-2.0, b=2.0,
+                                generator=generator)
+    return (fan_in ** -0.5 * x).to(dtype)
+
+
+def embed_init(shape, dtype, *, generator: torch.Generator) -> torch.Tensor:
+    x = torch.randn(shape, dtype=torch.float32, generator=generator)
+    return (x * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-5
+            ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: [B, H, S, Dh]; positions: [S] or [B, S] int (per-slot offsets).
+    Pairs (2i, 2i+1) rotate by positions * freqs[i]."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)               # [Dh/2]
+    ang = positions[..., :, None].to(torch.float32) * freqs      # [(B,)S,Dh/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if cos.ndim == 3:            # per-batch positions: insert the head axis
+        cos, sin = cos[:, None], sin[:, None]
+    x1 = x[..., 0::2].to(torch.float32)
+    x2 = x[..., 1::2].to(torch.float32)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def mlp(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor | None,
+        x: torch.Tensor, *, act: str) -> torch.Tensor:
+    """SwiGLU (w3 gates) or GeLU (tanh approximation, as jax.nn.gelu)."""
+    h = x @ w1
+    if act == "swiglu":
+        h = torch.nn.functional.silu(h) * (x @ w3)
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    return h @ w2
+
+
+def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [..., D] @ w [D, V] -> float32 logits."""
+    return x.to(torch.float32) @ w.to(torch.float32)
