@@ -8,25 +8,36 @@ runs four phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
-2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (smollm-135m: d = 64 -> 2 words,
-   9 heads, 3 kv heads, 16-token pages, bf16 V, 4 slots, 4096-token
-   tables, 512-token prefill chunks), with ragged lengths, a partially
-   valid query tile, idle rows (q_length 0), -1 table entries, shuffled
-   pages and count-0 blocks. Outputs are float32: allclose at atol 1e-5,
-   rtol 1e-4 (the kernel skips the softmax max subtraction and sums in
-   another order). Prints error, kernel and plain times (CUDA events) and
-   the bound (least time the card could take for the same work).
+2. Each of the five kernels against its plain PyTorch version on the
+   card, at the shapes the serving path gives it (smollm-135m: d = 64 ->
+   2 words, 9 heads, 3 kv heads, 16-token pages, bf16 V, 4 slots,
+   4096-token tables and caches, 512-token prefill chunks; the score
+   matrix at q [3, 1536, 2] x k [3, 4096, 2]), with ragged lengths, a
+   partially valid query tile, idle rows (q_length 0), -1 table entries,
+   shuffled pages and count-0 blocks. Float outputs allclose at atol
+   1e-5, rtol 1e-4 (the kernels sum in another order); integers (page
+   bounds, scores) exactly; the dense-cache decode equal bit for bit to
+   the paged decode of the same tokens. Prints error, kernel and plain
+   times (CUDA events), the bound (least time the card could take for the
+   same work) and, where one PyTorch call computes the same function, its
+   time.
 3. Cross-device: smollm-135m widths at 2 layers in float32, the same
    seeded weights on the CPU (plain versions) and on the card (kernels):
    first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
    another order through two layers, where a key's sign bit can flip)
-   and equal greedy tokens.
+   and equal greedy tokens, on the paged cache, the dense cache and with
+   page-sparse decode.
 4. The slice at full size: smollm-135m, all 30 layers, bf16, seeded
-   random weights, paged (16-token pages), prefill chunks of 512, 4
-   slots, 8 staggered requests with 512-3072-token prompts and 32 new
-   tokens each, max_len 4096 (top-N = 479). Launch counts are zeroed just
-   before and read just after; each kernel must run 30 times per step.
+   random weights, prefill chunks of 512, 4 slots, 8 staggered requests
+   with 512-3072-token prompts and 32 new tokens each, max_len 4096
+   (top-N = 479), run four times: paged (16-token pages, 256-entry
+   tables), dense cache, page-sparse with page_topn 255 (every resident
+   page kept) and page_topn 64; then `ops.hamming_scores` at the phase-2
+   shapes, both methods. Launch counts are zeroed just before each run
+   and read just after; every kernel of a run's path must run 30 times a
+   step (a chunk for the prefill kernel, a decode step for the decode and
+   page-score kernels). The dense and page_topn-255 tokens must equal the
+   paged run's; page_topn 64 must attend fewer pages.
 
 Then the kernel record line and, last, the result line.
 """
@@ -46,6 +57,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12        # float32 outside the tensor cores
+INT8_TENSOR_OPS_PER_S = 1979e12
 TOL = dict(atol=1e-5, rtol=1e-4)
 CROSS_TOL = dict(atol=2e-3, rtol=2e-3)
 
@@ -74,9 +86,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -173,21 +186,51 @@ def _paged_case(gen, lengths):
     return q, k_pool, v_pool, bt, lens
 
 
-def _paged_work(q, k_pool, v_pool, bt, lens):
+def _decode_work(q, k_rows, lens, index_bytes):
+    """(bytes, ops) top-N decode needs for these inputs: q [B, H, W],
+    k_rows [B, Hk, T, W] row-major, lens [B]; index_bytes of block tables
+    and counts (paged) or lengths (dense)."""
     import torch
     from repro_torch.core import hamming, topn
-    from repro_torch.kernels import ref
-    k_rows, _ = ref.gather_rows(k_pool, v_pool, bt)        # [B, Hk, T, W]
     s = hamming.binary_scores(q.reshape(B, HK, G, W), k_rows, D)
-    valid = (torch.arange(T_MAX, device="cuda")[None, None, None]
+    valid = (torch.arange(k_rows.shape[2], device="cuda")[None, None, None]
              < lens[:, None, None, None]).expand_as(s)
     keep = topn.topn_mask_binary(s, NSEL, D, valid=valid)
     n_keys = lens.sum().item() * HK
     v_keys = keep.any(2).sum().item()
     nbytes = (B * H * W * 4 + n_keys * W * 4 + v_keys * DV * 2
-              + 2 * B * HK * NB * 4 + B * H * DV * 4)
+              + index_bytes + B * H * DV * 4)
     nops = keep.sum().item() * (2 * DV + 1) + n_keys * G * (2 * W + 2)
     return nbytes, nops
+
+
+def _paged_work(q, k_pool, bt, lens):
+    from repro_torch.models.attention_block import gather_pages
+    k_rows = gather_pages(k_pool, bt.clamp_min(0), 3).transpose(-1, -2)
+    return _decode_work(q, k_rows, lens, 2 * B * HK * NB * 4)
+
+
+def _dense_case(gen, lengths):
+    """A dense cache: q [B, H, W], k bit-planes [B*Hk, W, T], bf16 v
+    [B*Hk, T, Dv], lengths [B]."""
+    import torch
+    q = _bits((B, H, D), gen)
+    k = _bits((B * HK, T_MAX, D), gen).transpose(-1, -2).contiguous()
+    v = torch.randn((B * HK, T_MAX, DV), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def _record(mod, replaces, err, ms, plain_ms, work, library_ms=None,
+            ops_per_s=CUDA_CORE_OPS_PER_S) -> dict:
+    b_ms, b_by = bound(*work, ops_per_s=ops_per_s)
+    log(f"phase 2: {mod.NAME} {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by}, library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'})")
+    return dict(name=mod.NAME, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{mod.NAME}.cu",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
 def phase2() -> dict:
@@ -223,16 +266,10 @@ def phase2() -> dict:
         q, k, v, group_size=G, n_kv_heads=HK, **kw), iters=50)
     plain_ms = cuda_ms(lambda: ref.prefill_attention_ref(
         q, k, v, group_size=G, **kw), iters=3, warmup=1)
-    b_ms, b_by = bound(*_prefill_work(q, k, kw["kv_length"], kw["q_offset"],
-                                      kw["q_length"]))
-    records[pre.NAME] = dict(
-        name=pre.NAME, route="cuda",
-        source="src/repro_torch/kernels/csrc/binary_prefill_attention.cu",
-        replaces="src/repro/kernels/binary_prefill_attention.py:106",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    log(f"phase 2: K1 prefill {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.5f} ms by {b_by})")
+    records[pre.NAME] = _record(
+        pre, "src/repro/kernels/binary_prefill_attention.py:106", err, ms,
+        plain_ms, _prefill_work(q, k, kw["kv_length"], kw["q_offset"],
+                                kw["q_length"]))
 
     # K2: 4 decoding slots, ragged lengths, shuffled pages, -1 past each
     # row's pages (count-0 blocks)
@@ -256,19 +293,134 @@ def phase2() -> dict:
     ms = cuda_ms(lambda: pdec.paged_decode_attention(
         qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE),
         iters=200)
-    plain_ms = cuda_ms(lambda: ref.paged_decode_attention_ref(
-        q.reshape(B, HK, G, W), k_pool, v_pool, bt, d=D, nsel=NSEL,
-        scale=SCALE, lengths=lens), iters=10, warmup=2)
-    b_ms, b_by = bound(*_paged_work(q, k_pool, v_pool, bt, lens))
-    records[pdec.NAME] = dict(
-        name=pdec.NAME, route="cuda",
-        source="src/repro_torch/kernels/csrc/binary_paged_decode_attention.cu",
-        replaces="src/repro/kernels/binary_paged_decode_attention.py:109",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    log(f"phase 2: K2 paged decode {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-        f"bound {b_ms:.5f} ms by {b_by})")
+    plain_ms = cuda_ms(lambda: ref.paged_decode_attention_rows_ref(
+        qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE),
+        iters=10, warmup=2)
+    records[pdec.NAME] = _record(
+        pdec, "src/repro/kernels/binary_paged_decode_attention.py:109", err,
+        ms, plain_ms, _paged_work(q, k_pool, bt, lens))
+    records.update(_phase2_k3(gen))
+    records.update(_phase2_k4(gen))
+    records.update(_phase2_k5(gen))
     return records
+
+
+def _phase2_k3(gen) -> dict:
+    """K3 over the paged case's pools: exact integers."""
+    import torch
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import ops, ref
+    for lengths in ([3104, 1537, 600, 33], [4095, 1, 17, 2048]):
+        q, k_pool, _, bt, lens = _paged_case(gen, lengths)
+        bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
+        qf = q.reshape(B * HK, G, W).contiguous()
+        got = pscore.paged_page_scores(qf, k_pool, bt_rows, counts, d=D)
+        want = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts, d=D)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K3 page scores {lengths}")
+        check(bool((got[counts == 0] == -D).all()), "count-0 blocks score -d")
+        log(f"phase 2: K3 page scores lengths {lengths} exact "
+            f"({int((counts > 0).sum())} listed pages)")
+    q, k_pool, _, bt, lens = _paged_case(gen, [3104, 1537, 600, 33])
+    bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
+    qf = q.reshape(B * HK, G, W).contiguous()
+    ms = cuda_ms(lambda: pscore.paged_page_scores(qf, k_pool, bt_rows,
+                                                  counts, d=D), iters=200)
+    plain_ms = cuda_ms(lambda: ref.paged_page_scores_ref(
+        qf, k_pool, bt_rows, counts, d=D), iters=10, warmup=2)
+    r = B * HK
+    n_keys = lens.sum().item() * HK
+    work = (r * G * W * 4 + n_keys * W * 4 + 3 * r * NB * 4,
+            n_keys * W * 2 + r * NB * G * W * 6)
+    return {pscore.NAME: _record(
+        pscore, "src/repro/kernels/binary_page_score.py:68", 0.0, ms,
+        plain_ms, work)}
+
+
+def _phase2_k4(gen) -> dict:
+    """K4 over a dense cache; the same tokens laid out as in-order pages
+    through K2 must give the same bits."""
+    import torch
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import ops, ref
+    kw = dict(d=D, nsel=NSEL, scale=SCALE)
+    err = 0.0
+    for lengths in ([3104, 1537, 600, 33], [4095, 1, 17, 2048]):
+        q, k, v, lens = _dense_case(gen, lengths)
+        qf = q.reshape(B * HK, G, W).contiguous()
+        len_f = lens.repeat_interleave(HK)
+        got = dec.decode_attention(qf, k, v, len_f, **kw)
+        want = ref.decode_attention_ref(qf, k.transpose(-1, -2), v,
+                                        lengths=len_f, **kw)
+        k_pool = k.reshape(B, HK, W, NB, PAGE).permute(0, 3, 1, 2, 4) \
+            .reshape(B * NB, HK, W, PAGE).contiguous()
+        v_pool = v.reshape(B, HK, NB, PAGE, DV).permute(0, 2, 1, 3, 4) \
+            .reshape(B * NB, HK, PAGE, DV).contiguous()
+        bt = torch.arange(B * NB, dtype=torch.int32,
+                          device="cuda").reshape(B, NB)
+        paged = ops.paged_decode_attention(q, k_pool, v_pool, bt,
+                                           lengths=lens, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        check(torch.equal(got.reshape(B, H, DV), paged),
+              f"dense-cache decode != paged decode of the same tokens "
+              f"{lengths}")
+        err = max(err, (got - want).abs().max().item())
+        log(f"phase 2: K4 dense decode lengths {lengths} max_abs_err "
+            f"{(got - want).abs().max().item():.3e}, == K2 bit for bit")
+    q, k, v, lens = _dense_case(gen, [3104, 1537, 600, 33])
+    qf = q.reshape(B * HK, G, W).contiguous()
+    len_f = lens.repeat_interleave(HK)
+    ms = cuda_ms(lambda: dec.decode_attention(qf, k, v, len_f, **kw),
+                 iters=200)
+    plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
+        qf, k.transpose(-1, -2), v, lengths=len_f, **kw), iters=10,
+        warmup=2)
+    work = _decode_work(q, k.transpose(-1, -2).reshape(B, HK, T_MAX, W),
+                        lens, B * HK * 4)
+    return {dec.NAME: _record(
+        dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
+        plain_ms, work)}
+
+
+def _phase2_k5(gen) -> dict:
+    """K5 on q [3, 1536, 2] x k [3, 4096, 2], both methods exact; the
+    library yardstick is torch._int_mm on the unpacked +-1 int8 matrices
+    (unpack excluded), one call per batch entry (it takes 2-D operands)."""
+    import torch
+    from repro_torch.core import hamming
+    from repro_torch.kernels import hamming_score as hs
+    from repro_torch.kernels import ref
+    qh, kh = _bits((3, 1536, D), gen), _bits((3, 4096, D), gen)
+    want = ref.hamming_score_ref(qh, kh, D)
+    ms = {}
+    for method in hs.METHODS:
+        got = hs.hamming_score(qh, kh, D, method=method)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K5 {method} scores")
+        ms[method] = cuda_ms(lambda: hs.hamming_score(qh, kh, D,
+                                                      method=method),
+                             iters=200)
+        log(f"phase 2: K5 hamming_score [{method}] exact, {ms[method]:.4f} "
+            f"ms")
+    q8 = hamming.unpack_bits(qh, D).to(torch.int8)
+    k8 = hamming.unpack_bits(kh, D).to(torch.int8)
+
+    def library():
+        return [torch._int_mm(q8[i], k8[i].T) for i in range(3)]
+
+    check(torch.equal(torch.stack(library()), want), "torch._int_mm scores")
+    library_ms = cuda_ms(library, iters=200)
+    plain_ms = cuda_ms(lambda: ref.hamming_score_ref(qh, kh, D), iters=3,
+                       warmup=1)
+    n_out = want.numel()
+    work = ((qh.numel() + kh.numel()) * 4 + n_out * 4, n_out * (2 * W + 2))
+    int8_bound, _ = bound(work[0], n_out * 2 * D, INT8_TENSOR_OPS_PER_S)
+    log(f"phase 2: K5 int8 method {ms['int8']:.4f} ms against its own bound "
+        f"{int8_bound:.5f} ms")
+    return {hs.NAME: _record(
+        hs, "src/repro/kernels/hamming_score.py:64", 0.0, ms["xor"],
+        plain_ms, work, library_ms=library_ms)}
 
 
 # ---------------------------------------------------------------------------
@@ -290,67 +442,60 @@ def phase3() -> None:
     cpu_model = T.init_params(cfg, torch.Generator().manual_seed(1))
     gpu_model = T.init_params(cfg, torch.Generator().manual_seed(1),
                               device="cuda")
-    # first step: one prefill chunk through serve_step on both devices
+    # first step: one prefill chunk through serve_step on both devices,
+    # into page pools and into the dense cache
     n_pages, page, chunk = 8, 16, 64
     rng = np.random.default_rng(1)
     tok = rng.integers(0, cfg.vocab_size, (2, chunk)).astype(np.int32)
     args = dict(pos=np.array([0, 0], np.int32),
-                block_tables=np.array([[2, 5, 0, 6], [1, 3, 7, -1]],
-                                      np.int32),
                 active=np.array([True, True]),
                 n_valid=np.array([chunk, 41], np.int32))
-    logits = []
-    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
-        caches = T.init_caches(cfg, n_pages=n_pages, page_size=page,
-                               device=dev)
-        out = T.serve_step(
-            model, torch.from_numpy(tok).to(dev), caches, n=16,
-            logits_mode="last",
-            **{k: torch.from_numpy(v).to(dev) for k, v in args.items()})
-        logits.append(out.cpu())
-    diff = (logits[0] - logits[1]).abs().max().item()
-    torch.testing.assert_close(logits[1], logits[0], **CROSS_TOL)
-    log(f"phase 3: first-step logits cpu vs cuda max_abs_diff {diff:.3e}")
+    caches = {"paged": dict(paged=True, n_pages=n_pages, page_size=page),
+              "dense": dict(paged=False, batch=2, max_len=chunk)}
+    tables = {"paged": np.array([[2, 5, 0, 6], [1, 3, 7, -1]], np.int32),
+              "dense": None}
+    for kind, cache_kw in caches.items():
+        logits = []
+        for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+            bt = tables[kind]
+            out = T.serve_step(
+                model, torch.from_numpy(tok).to(dev),
+                T.init_caches(cfg, device=dev, **cache_kw), n=16,
+                logits_mode="last",
+                block_tables=None if bt is None else
+                torch.from_numpy(bt).to(dev),
+                **{k: torch.from_numpy(v).to(dev) for k, v in args.items()})
+            logits.append(out.cpu())
+        diff = (logits[0] - logits[1]).abs().max().item()
+        torch.testing.assert_close(logits[1], logits[0], **CROSS_TOL)
+        log(f"phase 3: first-step logits ({kind} cache) cpu vs cuda "
+            f"max_abs_diff {diff:.3e}")
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (70, 130, 41)]
     scfg = dict(max_len=160, batch_slots=2, prefill_chunk=64, paged=True,
                 page_size=16)
-    outs = []
-    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
-        outs.append(_engine(cfg, model, scfg, dev).generate(prompts, 8))
-    check((outs[0] == outs[1]).all(), (outs[0], outs[1]))
-    log(f"phase 3: greedy tokens equal on cpu and cuda: {outs[1].tolist()}")
+    for kind, kw in (("paged", {}), ("dense", dict(paged=False)),
+                     ("page_topn 3", dict(page_topn=3))):
+        outs = []
+        for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+            outs.append(_engine(cfg, model, dict(scfg, **kw),
+                                dev).generate(prompts, 8))
+        check((outs[0] == outs[1]).all(), (kind, outs[0], outs[1]))
+        log(f"phase 3: greedy tokens ({kind}) equal on cpu and cuda: "
+            f"{outs[1].tolist()}")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the slice at full size
 # ---------------------------------------------------------------------------
 
-def phase4() -> dict:
+def _serve_run(eng, prompts, gen: int) -> dict:
+    """The staggered workload through `eng` (4 requests up front, one more
+    every 4 steps). Launch counts are zeroed just before and read just
+    after."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import binary_paged_decode_attention as pdec
-    from repro_torch.kernels import binary_prefill_attention as pre
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.serve import Telemetry
-    cfg = get_config("smollm-135m")
-    t0 = time.perf_counter()
-    model = T.init_params(cfg, torch.Generator().manual_seed(0),
-                          device="cuda")
-    log(f"phase 4: {cfg.name} {cfg.n_layers} layers {cfg.param_dtype}, "
-        f"weights in {time.perf_counter() - t0:.1f} s")
-    tel = Telemetry()
-    eng = _engine(cfg, model, dict(max_len=4096, batch_slots=4,
-                                   prefill_chunk=512, paged=True,
-                                   page_size=16), "cuda", telemetry=tel)
-    check(eng.n == NSEL, eng.n)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(512, 3073, 8)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in lens]
-    gen = 32
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -370,27 +515,117 @@ def phase4() -> dict:
     counts = ops.launch_counts()
     metrics += eng.pop_finished_metrics()
     eng.check()
-    st = eng.stats
     check(sorted(results) == sorted(ids) and len(ids) == len(prompts),
           "every request finishes")
     for rid in ids:
         toks = results[rid]
         check(toks.shape == (gen,), (rid, toks.shape))
-        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), rid)
-    check(counts[pre.NAME] > 0 and counts[pdec.NAME] > 0, counts)
-    check(counts[pre.NAME] == cfg.n_layers * st["prefill_chunks"], counts)
-    check(counts[pdec.NAME] == cfg.n_layers * st["decode_steps"], counts)
-    ttft = np.array([m.ttft for m in metrics]) * 1e3
-    itl = np.array([x for m in metrics for x in m.itl]) * 1e3
-    log(f"phase 4: prompts {lens.tolist()}, {gen} new tokens each; "
-        f"{steps} steps, {st['prefill_chunks']} prefill chunks, "
-        f"{st['decode_steps']} decode steps, launches {counts}")
-    log(f"phase 4: wall {wall:.3f} s, {st['tokens_generated'] / wall:.2f} "
-        f"generated tok/s, TTFT p50/p95 {np.percentile(ttft, 50):.2f}/"
-        f"{np.percentile(ttft, 95):.2f} ms, ITL p50/p95 "
-        f"{np.percentile(itl, 50):.2f}/{np.percentile(itl, 95):.2f} ms, "
-        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return counts, eng
+        check(((toks >= 0) & (toks < eng.cfg.vocab_size)).all(), rid)
+    return dict(tokens=[results[rid] for rid in ids], counts=counts,
+                wall=wall, steps=steps, stats=dict(eng.stats),
+                ttft=np.array([m.ttft for m in metrics]) * 1e3,
+                itl=np.array([x for m in metrics for x in m.itl]) * 1e3)
+
+
+def phase4():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import hamming
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import hamming_score as hs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Telemetry
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    log(f"phase 4: {cfg.name} {cfg.n_layers} layers {cfg.param_dtype}, "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 3073, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    gen = 32
+    log(f"phase 4: prompts {lens.tolist()}, {gen} new tokens each")
+    base = dict(max_len=4096, batch_slots=4, prefill_chunk=512,
+                page_size=16)
+    # run -> (ServeConfig fields, the decode kernels its path launches)
+    paths = {"paged": (dict(paged=True), (pdec,)),
+             "dense": (dict(paged=False), (dec,)),
+             "page_topn_255": (dict(paged=True, page_topn=255),
+                               (pdec, pscore)),
+             "page_topn_64": (dict(paged=True, page_topn=64),
+                              (pdec, pscore))}
+    runs, total, main_eng = {}, {}, None
+    for name, (kw, decoders) in paths.items():
+        eng = _engine(cfg, model, dict(base, **kw), "cuda",
+                      telemetry=Telemetry())
+        check(eng.n == NSEL, eng.n)
+        r = _serve_run(eng, prompts, gen)
+        st = r["stats"]
+        want = {k: 0 for k in r["counts"]}
+        want[pre.NAME] = cfg.n_layers * st["prefill_chunks"]
+        for mod in decoders:
+            want[mod.NAME] = cfg.n_layers * st["decode_steps"]
+        check(r["counts"] == want and st["decode_steps"] > 0,
+              (name, r["counts"], want))
+        for k, v in r["counts"].items():
+            total[k] = total.get(k, 0) + v
+        log(f"phase 4 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
+            f"prefill chunks, {st['decode_steps']} decode steps, launches "
+            f"{r['counts']}, decode pages attended "
+            f"{st['decode_pages_touched']}, decode KV bytes "
+            f"{st['decode_hbm_bytes']}")
+        log(f"phase 4 [{name}]: wall {r['wall']:.3f} s, "
+            f"{st['tokens_generated'] / r['wall']:.2f} generated tok/s, TTFT "
+            f"p50/p95 {np.percentile(r['ttft'], 50):.2f}/"
+            f"{np.percentile(r['ttft'], 95):.2f} ms, ITL p50/p95 "
+            f"{np.percentile(r['itl'], 50):.2f}/"
+            f"{np.percentile(r['itl'], 95):.2f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        runs[name] = r
+        if name == "paged":
+            main_eng = eng
+    for name in ("dense", "page_topn_255"):
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(runs[name]["tokens"], runs["paged"]["tokens"]))
+        check(same, f"{name} tokens differ from the paged run's")
+    touched = {k: r["stats"]["decode_pages_touched"] for k, r in runs.items()}
+    check(touched["page_topn_255"] == touched["paged"], touched)
+    check(touched["page_topn_64"] < touched["paged"], touched)
+    agree = np.mean([np.mean(a == b) for a, b in
+                     zip(runs["page_topn_64"]["tokens"],
+                         runs["paged"]["tokens"])])
+    log(f"phase 4: dense and page_topn 255 tokens equal the paged run's; "
+        f"page_topn 64 attends {touched['page_topn_64']} of "
+        f"{touched['paged']} pages, {agree:.3f} of its tokens agree")
+
+    # ops.hamming_scores, the public entry point of K5, at the phase-2
+    # shapes on packed bits of seeded Gaussian queries and keys
+    gen_t = torch.Generator(device="cuda").manual_seed(4)
+    qh = hamming.pack_bits(torch.randn((3, 1536, D), generator=gen_t,
+                                       device="cuda"))
+    kh = hamming.pack_bits(torch.randn((3, 4096, D), generator=gen_t,
+                                       device="cuda"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    scores = [ops.hamming_scores(qh, kh, D, method=m) for m in hs.METHODS]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts == {**{k: 0 for k in counts}, hs.NAME: len(hs.METHODS)},
+          counts)
+    check(scores[0].shape == (3, 1536, 4096)
+          and torch.equal(scores[0], scores[1])
+          and int(scores[0].abs().max()) <= D, "hamming_scores")
+    log(f"phase 4 [hamming_scores]: launches {counts}")
+    for k, v in counts.items():
+        total[k] += v
+    return total, main_eng
 
 
 def profile_windows(eng, out_dir: str) -> None:
@@ -438,6 +673,8 @@ def profile_windows(eng, out_dir: str) -> None:
         for e in kernels:
             key = ("K1 prefill_kernel" if "prefill_kernel" in e.key else
                    "K2 paged_decode_kernel" if "paged_decode" in e.key else
+                   "K3 page_score_kernel" if "page_score" in e.key else
+                   "K4 decode_kernel" if "decode_kernel" in e.key else
                    "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key
                    else "gemm" if any(t in e.key for t in
                                       ("gemm", "nvjet", "cutlass", "sm90"))

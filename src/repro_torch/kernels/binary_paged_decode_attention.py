@@ -4,9 +4,10 @@ Port of ``repro.kernels.binary_paged_decode_attention.paged_decode_attention``
 (see ``csrc/binary_paged_decode_attention.cu`` for the kernel's design).
 The signature mirrors the Pallas call: per-(slot, kv-head) ROW block tables
 and per-block valid counts, so a compacted table (page-sparse decode) can
-reuse the kernel unchanged. Its plain version is
-``repro_torch.kernels.ref.paged_decode_attention_ref``; the ops layer
-picks between the two by tensor device.
+reuse the kernel unchanged. Its plain version,
+``repro_torch.kernels.ref.paged_decode_attention_rows_ref``, takes the
+same tables and counts; the ops layer picks between the two by tensor
+device.
 """
 from __future__ import annotations
 
@@ -56,16 +57,10 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)} v_pool {tuple(v_pool.shape)} "
                          f"tables {tuple(block_tables.shape)} counts "
                          f"{tuple(counts.shape)}")
-    for name, t in (("q_bits", q_bits), ("k_pool", k_pool),
-                    ("block_tables", block_tables), ("counts", counts)):
-        if t.dtype != torch.int32 or t.device != q_bits.device or \
-                not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{q_bits.device} (a CUDA device)")
-    if v_pool.dtype not in (torch.float32, torch.bfloat16) or \
-            v_pool.device != q_bits.device or not v_pool.is_contiguous():
-        raise ValueError("v_pool must be a contiguous float32/bfloat16 "
-                         "CUDA tensor")
+    build.require(q_bits.device, (torch.int32,), q_bits=q_bits,
+                  k_pool=k_pool, block_tables=block_tables, counts=counts)
+    build.require(q_bits.device, (torch.float32, torch.bfloat16),
+                  v_pool=v_pool)
     out = torch.empty((r, g, dv), dtype=torch.float32, device=q_bits.device)
     stream = torch.cuda.current_stream(q_bits.device).cuda_stream
     err = _fn()(q_bits.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -56,20 +56,14 @@ def prefill_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
                          f"group {group_size} kv heads {n_kv_heads}")
     if dv not in HEAD_DIMS:
         raise ValueError(f"V width {dv} not in {HEAD_DIMS}")
-    for name, x in (("q_bits", q_bits), ("k_bits", k_bits),
-                    ("kv_length", kv_length), ("q_offset", q_offset),
-                    ("q_length", q_length)):
-        if x.dtype != torch.int32 or x.device != q_bits.device or \
-                not x.is_cuda or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{q_bits.device} (a CUDA device)")
+    build.require(q_bits.device, (torch.int32,), q_bits=q_bits,
+                  k_bits=k_bits, kv_length=kv_length, q_offset=q_offset,
+                  q_length=q_length)
     for x in (kv_length, q_offset, q_length):
         if x.shape != (bh,):
             raise ValueError(f"per-row vectors must be [{bh}], got "
                              f"{tuple(x.shape)}")
-    if v.dtype not in (torch.float32, torch.bfloat16) or \
-            v.device != q_bits.device or not v.is_contiguous():
-        raise ValueError("v must be a contiguous float32/bfloat16 CUDA tensor")
+    build.require(q_bits.device, (torch.float32, torch.bfloat16), v=v)
     out = torch.empty((bh, s, dv), dtype=torch.float32, device=q_bits.device)
     stream = torch.cuda.current_stream(q_bits.device).cuda_stream
     err = _fn()(q_bits.data_ptr(), k_bits.data_ptr(), v.data_ptr(),

@@ -22,7 +22,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("binary_prefill_attention", "binary_paged_decode_attention")
+SOURCES = ("binary_prefill_attention", "binary_paged_decode_attention",
+           "binary_page_score", "binary_decode_attention", "hamming_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,6 +110,19 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _libs[name] = lib
     return lib
+
+
+def require(device, dtypes, **tensors) -> None:
+    """Raise ValueError unless every named tensor is contiguous, lies on
+    `device` (a CUDA device) and has one of `dtypes` -- what a kernel's C
+    entry point assumes of the pointers it is given."""
+    for name, t in tensors.items():
+        if t.dtype not in dtypes or t.device != device or not t.is_cuda \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {'/'.join(map(str, dtypes))} "
+                f"tensor on {device} (a CUDA device), got {t.dtype} on "
+                f"{t.device}{'' if t.is_contiguous() else ', strided'}")
 
 
 def check(err: int, what: str) -> None:

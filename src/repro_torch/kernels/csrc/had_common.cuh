@@ -1,5 +1,5 @@
-// Device helpers shared by the HAD attention kernels (prefill and paged
-// decode). They replace `_scores` / `_threshold` of
+// Device helpers shared by the HAD kernels (prefill, both decodes, page
+// scores, score matrix). They replace `_scores` / `_threshold` of
 // src/repro/kernels/binary_decode_attention.py.
 //
 // Packed words arrive as int32 tensors holding the JAX package's uint32 bit

@@ -1,19 +1,26 @@
-"""Public wrappers over the HAD attention kernels (torch twin of
+"""Public wrappers over the HAD kernels (torch twin of
 ``repro.kernels.ops``).
 
-They handle layout (bit-planes vs row-major keys), GQA row flattening and
-per-slot -> per-row scalars, and dispatch by the DEVICE OF THE TENSORS:
-CUDA tensors launch the hand-written kernel (a failed build or launch
-raises; nothing falls back), CPU tensors run the kernel's plain version
-from ``repro_torch.kernels.ref``.
+They handle layout (bit-planes vs row-major keys), GQA row flattening,
+per-slot -> per-row tables and scalars, and page selection, and dispatch
+by the DEVICE OF THE TENSORS: CUDA tensors launch the hand-written kernel
+(a failed build or launch raises; nothing falls back), CPU tensors run the
+kernel's plain version from ``repro_torch.kernels.ref`` on the same
+inputs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import binary_decode_attention as _dec
+from repro_torch.kernels import binary_page_score as _pscore
 from repro_torch.kernels import binary_paged_decode_attention as _pdec
 from repro_torch.kernels import binary_prefill_attention as _pre
+from repro_torch.kernels import hamming_score as _hs
 from repro_torch.kernels import ref
+from repro_torch.kernels.ref import row_tables as _row_tables
+
+_KERNELS = (_pre, _pdec, _pscore, _dec, _hs)
 
 
 def to_bitplanes(k_bits: torch.Tensor) -> torch.Tensor:
@@ -23,12 +30,12 @@ def to_bitplanes(k_bits: torch.Tensor) -> torch.Tensor:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel source name."""
-    return {_pre.NAME: _pre.launches, _pdec.NAME: _pdec.launches}
+    return {k.NAME: k.launches for k in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _pre.launches = 0
-    _pdec.launches = 0
+    for k in _KERNELS:
+        k.launches = 0
 
 
 def _per_slot(x, b: int, device) -> torch.Tensor:
@@ -36,19 +43,86 @@ def _per_slot(x, b: int, device) -> torch.Tensor:
                                               device=device), (b,))
 
 
-def _row_tables(block_tables: torch.Tensor, lengths: torch.Tensor, hk: int,
-                page: int):
-    """Per-slot [B, nb] table + [B] lengths -> per-(slot, kv-head) ROW
-    tables [B*Hk, nb] (-1 clamped to 0), per-block valid counts
-    [B*Hk, nb], and per-row lengths [B*Hk], all int32."""
-    bt = block_tables.to(torch.int32).clamp_min(0)
-    b, nb = bt.shape
-    bt_rows = torch.repeat_interleave(bt, hk, dim=0)
-    len_f = torch.repeat_interleave(lengths.to(torch.int32), hk)
-    blocks = torch.arange(nb, dtype=torch.int32, device=bt.device)
-    counts = (len_f[:, None] - blocks[None] * page).clamp(0, page)
-    return (bt_rows.contiguous(), counts.to(torch.int32).contiguous(),
-            len_f)
+def hamming_scores(q_bits: torch.Tensor, k_bits: torch.Tensor, d: int, *,
+                   method: str = "xor") -> torch.Tensor:
+    """Binary scores for row-major packed bits with arbitrary leading dims.
+
+    q_bits [..., M, W]; k_bits [..., N, W] int32 -> [..., M, N] int32.
+    method "xor" or "int8" selects the kernel's arithmetic on the card; the
+    integers are the same either way, and on the CPU both are the plain
+    version's.
+    """
+    if method not in _hs.METHODS:
+        raise ValueError(f"method must be one of {_hs.METHODS}, got "
+                         f"{method!r}")
+    lead = q_bits.shape[:-2]
+    m, w = q_bits.shape[-2:]
+    n = k_bits.shape[-2]
+    qf = q_bits.reshape(-1, m, w)
+    kf = k_bits.reshape(-1, n, w)
+    if not q_bits.is_cuda:
+        out = ref.hamming_score_ref(qf, kf, d)
+    else:
+        out = _hs.hamming_score(qf.contiguous(), kf.contiguous(), d,
+                                method=method)
+    return out.reshape(*lead, m, n)
+
+
+def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
+                     v: torch.Tensor, *, d: int, nsel: int, scale: float,
+                     lengths, bitplanes: bool = False) -> torch.Tensor:
+    """HAD decode attention for one new token over a contiguous cache.
+
+    q_bits [B, H, W] int32; k_bits [B, Hk, T, W] row-major, or
+    [B, Hk, W, T] when bitplanes=True (the dense cache's layout); v
+    [B, Hk, T, Dv]; lengths scalar or [B] int32 valid cache lengths.
+    Returns [B, H, Dv] float32.
+    """
+    b, h, w = q_bits.shape
+    hk = k_bits.shape[1]
+    t = k_bits.shape[-1] if bitplanes else k_bits.shape[-2]
+    g = h // hk
+    dv = v.shape[-1]
+    qf = q_bits.reshape(b * hk, g, w)
+    vf = v.reshape(b * hk, t, dv)
+    len_f = torch.repeat_interleave(_per_slot(lengths, b, q_bits.device), hk)
+    if not q_bits.is_cuda:
+        k_rows = to_bitplanes(k_bits) if bitplanes else k_bits
+        out = ref.decode_attention_ref(
+            qf, k_rows.reshape(b * hk, t, w), vf, d=d, nsel=nsel,
+            scale=scale, lengths=len_f)
+    else:
+        k_planes = k_bits if bitplanes else to_bitplanes(k_bits)
+        out = _dec.decode_attention(
+            qf.contiguous(), k_planes.reshape(b * hk, w, t).contiguous(),
+            vf.contiguous(), len_f.contiguous(), d=d, nsel=nsel,
+            scale=scale)
+    return out.reshape(b, h, dv)
+
+
+def select_pages(scores: torch.Tensor, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, *, page: int, n_sel: int):
+    """Phase-1 -> phase-2 handoff: keep each row's top-n_sel pages, with
+    the frontier (tail) page ALWAYS among them.
+
+    scores [R, nb] per-page scores (higher = keep); block_tables [R, nb]
+    int32 physical ids; lengths [R] int32 valid context lengths. n_sel is
+    clamped to nb. Returns compacted (tables [R, n_sel], counts
+    [R, n_sel], logical [R, n_sel]) int32 with blocks in ascending logical
+    order, so phase 2 accumulates in the dense walk's order. Blocks past
+    the frontier are forced out; any still picked (fewer resident blocks
+    than n_sel) keep count 0 and a clamped page id. Ties go to the lowest
+    logical block, as ``lax.top_k`` breaks them in the JAX package, so
+    tables, counts and logical ids equal JAX's exactly.
+    """
+    n_sel = min(n_sel, scores.shape[1])
+    lengths = lengths.to(torch.int32)
+    s = ref.selection_scores(scores, lengths, page=page)
+    idx = ref.top_blocks(s, n_sel).sort(dim=1).values      # ascending
+    counts = (lengths[:, None] - idx * page).clamp(0, page)
+    tables = torch.gather(block_tables.to(torch.int32), 1, idx).clamp_min(0)
+    return (tables.contiguous(), counts.to(torch.int32).contiguous(),
+            idx.to(torch.int32))
 
 
 def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
@@ -62,25 +136,35 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
     [n_pages, Hk, page, Dv]; block_tables [B, nb] int32 (-1 entries past a
     row's length are clamped -- per-block counts mask them); lengths [B]
     int32 valid cache lengths. Returns [B, H, Dv] float32.
+
+    page_topn < nb switches on two-phase page-sparse decode: phase 1
+    scores every listed page per (slot, kv-head) with the popcount upper
+    bound (K3), `select_pages` compacts each row's table to its top
+    page_topn pages plus the frontier, and phase 2 runs the decode kernel
+    over the compacted table. At page_topn >= resident pages the result is
+    bit-identical to the dense walk.
     """
-    if page_topn is not None:
-        raise NotImplementedError(
-            "page-sparse decode (page_topn) is not ported yet: ROADMAP "
-            "queue 1 item 6 and kernel K3 (binary_page_score)")
     b, h, w = q_bits.shape
     _, hk, _, page = k_pool.shape
     g = h // hk
-    qf = q_bits.reshape(b, hk, g, w)
+    qf = q_bits.reshape(b * hk, g, w).contiguous()
     lengths = _per_slot(lengths, b, q_bits.device)
+    bt_rows, counts, len_f = _row_tables(block_tables, lengths, hk, page)
+    if page_topn is not None and page_topn < bt_rows.shape[1]:
+        if not q_bits.is_cuda:
+            scores = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts,
+                                               d=d)
+        else:
+            scores = _pscore.paged_page_scores(qf, k_pool, bt_rows, counts,
+                                               d=d)
+        bt_rows, counts, _ = select_pages(scores, bt_rows, len_f, page=page,
+                                          n_sel=page_topn)
     if not q_bits.is_cuda:
-        out = ref.paged_decode_attention_ref(
-            qf, k_pool, v_pool, block_tables, d=d, nsel=nsel, scale=scale,
-            lengths=lengths)
-        return out.reshape(b, h, -1)
-    bt_rows, counts, _ = _row_tables(block_tables, lengths, hk, page)
-    out = _pdec.paged_decode_attention(
-        qf.reshape(b * hk, g, w).contiguous(), k_pool, v_pool, bt_rows,
-        counts, d=d, nsel=nsel, scale=scale)
+        out = ref.paged_decode_attention_rows_ref(
+            qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel, scale=scale)
+    else:
+        out = _pdec.paged_decode_attention(
+            qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel, scale=scale)
     return out.reshape(b, h, -1)
 
 

@@ -1,34 +1,76 @@
 """Plain PyTorch versions of the ported kernels (twins of the oracles in
-``repro.kernels.ref``): the same math with no tiling, built on
+``repro.kernels.ref``): the same math with no tiling of the grid, built on
 ``repro_torch.core``.
 
-``prefill_attention_ref`` is the plain version of the prefill kernel and
-``paged_decode_attention_ref`` that of the paged decode kernel. The ops
-layer runs them for tensors on the CPU; on the card they exist only to be
-compared with the kernels.
+Each kernel's plain version takes exactly what its wrapper takes:
+
+  K1 ``prefill_attention_ref``           binary_prefill_attention
+  K2 ``paged_decode_attention_rows_ref`` binary_paged_decode_attention
+  K3 ``paged_page_scores_ref``           binary_page_score
+  K4 ``decode_attention_ref``            binary_decode_attention
+  K5 ``hamming_score_ref``               hamming_score
+
+``paged_decode_attention_ref``, ``page_scores_ref`` and
+``paged_sparse_decode_attention_ref`` are the JAX oracles' per-slot
+signatures over them. The ops layer runs the plain versions for tensors on
+the CPU; on the card they exist only to be compared with the kernels.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import hamming, topn
+
+# Logical key positions per accumulation tile, as in the CUDA kernels.
+TILE_KEYS = 64
+# Selection score that forces a block in (the frontier) or out (past it).
+BIG = (2 ** 31 - 1) // 4
+
+
+def hamming_score_ref(q_bits: torch.Tensor, k_bits: torch.Tensor,
+                      d: int) -> torch.Tensor:
+    """q_bits [..., M, W], k_bits [..., N, W] row-major -> [..., M, N]
+    int32 scores d - 2 * ham (both of the kernel's methods give these)."""
+    return hamming.binary_scores(q_bits, k_bits, d)
 
 
 def _masked_topn_softmax_av(scores: torch.Tensor, v: torch.Tensor, *, d: int,
                             nsel: int, scale: float | torch.Tensor,
                             valid: torch.Tensor) -> torch.Tensor:
     """scores [..., Q, T] int32, v [..., T, Dv], valid [..., Q, T] ->
-    [..., Q, Dv] float32."""
+    [..., Q, Dv] float32.
+
+    The kernels' arithmetic: kept keys weigh exp(scale * (s - d)) (<= 1,
+    so no max is subtracted), and numerator and denominator are summed per
+    tile of TILE_KEYS positions, tile after tile. A result so depends only
+    on the kept keys at each logical position, never on how many masked
+    positions trail them (dense cache, paged rows, compacted page tables).
+    """
     keep = topn.topn_mask_binary(scores, nsel, d, valid=valid)
-    a = topn.sparse_softmax(scores.to(torch.float32), keep, scale=scale)
-    return a @ v.to(torch.float32)
+    e = torch.where(keep, torch.exp(scale * (scores - d).to(torch.float32)),
+                    0.0)
+    v = v.to(torch.float32)
+    pad = (-scores.shape[-1]) % TILE_KEYS
+    if pad:
+        e = F.pad(e, (0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    num = e.new_zeros(e.shape[:-1] + v.shape[-1:])
+    den = e.new_zeros(e.shape[:-1] + (1,))
+    for t0 in range(0, e.shape[-1], TILE_KEYS):
+        et = e[..., t0:t0 + TILE_KEYS]
+        num = num + et @ v[..., t0:t0 + TILE_KEYS, :]
+        den = den + et.sum(-1, keepdim=True)
+    return num / den.clamp_min(1e-30)
 
 
 def decode_attention_ref(q_bits: torch.Tensor, k_bits: torch.Tensor,
                          v: torch.Tensor, *, d: int, nsel: int,
                          scale: float | torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
-    """q_bits [BHk, G, W]; k_bits [BHk, T, W] row-major; v [BHk, T, Dv];
+    """Plain version of the contiguous-cache decode kernel.
+
+    q_bits [BHk, G, W]; k_bits [BHk, T, W] row-major; v [BHk, T, Dv];
     lengths [BHk] int32. Returns [BHk, G, Dv] float32."""
     t = k_bits.shape[1]
     scores = hamming.binary_scores(q_bits, k_bits, d)        # [BHk, G, T]
@@ -39,23 +81,62 @@ def decode_attention_ref(q_bits: torch.Tensor, k_bits: torch.Tensor,
                                    valid=valid)
 
 
-def gather_rows(k_pool: torch.Tensor, v_pool: torch.Tensor,
-                block_tables: torch.Tensor):
-    """Gather each slot's pages into contiguous rows.
-
-    k_pool [n_pages, Hk, W, page] bit-planes; v_pool [n_pages, Hk, page, Dv];
-    block_tables [B, nb] (-1 entries read page 0; callers mask by length).
-    Returns k rows [B, Hk, nb*page, W] row-major and v rows
-    [B, Hk, nb*page, Dv].
-    """
-    bt = block_tables.clamp_min(0).to(torch.int64)
+def row_tables(block_tables: torch.Tensor, lengths: torch.Tensor, hk: int,
+               page: int):
+    """Per-slot [B, nb] table + [B] lengths -> per-(slot, kv-head) ROW
+    tables [B*Hk, nb] (-1 clamped to 0), per-block valid counts
+    [B*Hk, nb], and per-row lengths [B*Hk], all int32."""
+    bt = block_tables.to(torch.int32).clamp_min(0)
     b, nb = bt.shape
-    kg = k_pool[bt]                                # [B, nb, Hk, W, page]
-    hk, w, page = kg.shape[2:]
-    k_rows = kg.permute(0, 2, 1, 4, 3).reshape(b, hk, nb * page, w)
-    vg = v_pool[bt]                                # [B, nb, Hk, page, Dv]
-    v_rows = vg.permute(0, 2, 1, 3, 4).reshape(b, hk, nb * page, -1)
-    return k_rows, v_rows
+    bt_rows = torch.repeat_interleave(bt, hk, dim=0)
+    len_f = torch.repeat_interleave(lengths.to(torch.int32), hk)
+    blocks = torch.arange(nb, dtype=torch.int32, device=bt.device)
+    counts = (len_f[:, None] - blocks[None] * page).clamp(0, page)
+    return (bt_rows.contiguous(), counts.to(torch.int32).contiguous(),
+            len_f)
+
+
+def _row_pages(k_pool: torch.Tensor, tables: torch.Tensor,
+               counts: torch.Tensor):
+    """Row tables [R, nb] and counts -> (page ids [R, nb] int64 with
+    entries outside [0, n_pages) sent to page 0, kv-head index [R, 1],
+    valid [R, nb, page] bool: offset t of listed block i holds a key iff
+    t < its count; out-of-range entries count as 0)."""
+    n_pages, hk, _, page = k_pool.shape
+    r = tables.shape[0]
+    ok = (tables >= 0) & (tables < n_pages)
+    tbl = torch.where(ok, tables, 0).to(torch.int64)
+    cnt = torch.where(ok, counts.clamp(0, page), 0)
+    head = (torch.arange(r, device=tables.device) % hk)[:, None]
+    offs = torch.arange(page, device=tables.device)
+    return tbl, head, offs[None, None] < cnt[..., None]
+
+
+def paged_decode_attention_rows_ref(q_bits: torch.Tensor,
+                                    k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor,
+                                    tables: torch.Tensor,
+                                    counts: torch.Tensor, *, d: int,
+                                    nsel: int,
+                                    scale: float | torch.Tensor
+                                    ) -> torch.Tensor:
+    """Plain version of the paged decode kernel, on the kernel's inputs.
+
+    q_bits [R, G, W] (R = B*Hk rows); k_pool [n_pages, Hk, W, page]
+    bit-planes; v_pool [n_pages, Hk, page, Dv]; tables / counts [R, nb]
+    row tables and valid tokens per listed block. Gathers each row's
+    listed pages into logical order (position i*page + t) and defers to
+    the masked top-N softmax. Returns [R, G, Dv] float32.
+    """
+    r, _, w = q_bits.shape
+    tbl, head, valid = _row_pages(k_pool, tables, counts)
+    t = valid.shape[1] * valid.shape[2]
+    k_rows = k_pool[tbl, head].transpose(-1, -2).reshape(r, t, w)
+    v_rows = v_pool[tbl, head].reshape(r, t, -1)
+    scores = hamming.binary_scores(q_bits, k_rows, d)         # [R, G, T]
+    valid = torch.broadcast_to(valid.reshape(r, 1, t), scores.shape)
+    return _masked_topn_softmax_av(scores, v_rows, d=d, nsel=nsel,
+                                   scale=scale, valid=valid)
 
 
 def paged_decode_attention_ref(q_bits: torch.Tensor, k_pool: torch.Tensor,
@@ -63,21 +144,109 @@ def paged_decode_attention_ref(q_bits: torch.Tensor, k_pool: torch.Tensor,
                                block_tables: torch.Tensor, *, d: int,
                                nsel: int, scale: float | torch.Tensor,
                                lengths: torch.Tensor) -> torch.Tensor:
-    """Plain version of the paged decode kernel.
+    """Per-slot form of paged_decode_attention_rows_ref (the JAX oracle's
+    signature): q_bits [B, Hk, G, W]; block_tables [B, nb]; lengths [B]
+    int32. Returns [B, Hk, G, Dv] float32."""
+    b, hk, g, w = q_bits.shape
+    tables, counts, _ = row_tables(block_tables, lengths, hk,
+                                   k_pool.shape[-1])
+    out = paged_decode_attention_rows_ref(
+        q_bits.reshape(b * hk, g, w), k_pool, v_pool, tables, counts, d=d,
+        nsel=nsel, scale=scale)
+    return out.reshape(b, hk, g, -1)
 
-    q_bits [B, Hk, G, W]; k_pool [n_pages, Hk, W, page]; v_pool
-    [n_pages, Hk, page, Dv]; block_tables [B, nb]; lengths [B] int32.
-    Gathers each slot's pages into the contiguous row-major layout and
-    defers to decode_attention_ref. Returns [B, Hk, G, Dv] float32.
+
+def paged_page_scores_ref(q_bits: torch.Tensor, k_pool: torch.Tensor,
+                          tables: torch.Tensor, counts: torch.Tensor, *,
+                          d: int) -> torch.Tensor:
+    """Plain version of the page-score kernel, on the kernel's inputs.
+
+    Unpacks each listed page's valid keys to bits and counts, per bit j,
+    the keys with bit j set (cnt_j). Bit j of some valid key can match
+    q_j iff (q_j = +1 and cnt_j > 0) or (q_j = -1 and cnt_j < n_valid);
+    ub = 2 * #matchable - d, maxed over the group. Only the first d bits
+    are unpacked, so tail bits never count.
+
+    q_bits [R, G, W]; k_pool [n_pages, Hk, W, page]; tables / counts
+    [R, nb]. Returns [R, nb] int32 (-d for a count-0 block).
+    """
+    tbl, head, valid = _row_pages(k_pool, tables, counts)
+    kg = k_pool[tbl, head].transpose(-1, -2)       # [R, nb, page, W]
+    kbit = (hamming.unpack_bits(kg, d) > 0) & valid[..., None]
+    cnt = kbit.sum(2)                              # [R, nb, d]
+    nv = valid.sum(-1)                             # [R, nb]
+    qpos = hamming.unpack_bits(q_bits, d) > 0      # [R, G, d]
+    match = torch.where(qpos[:, :, None, :], cnt[:, None] > 0,
+                        cnt[:, None] < nv[:, None, :, None])
+    ub = 2 * match.sum(-1) - d                     # [R, G, nb]
+    return ub.amax(1).to(torch.int32)
+
+
+def page_scores_ref(q_bits: torch.Tensor, k_pool: torch.Tensor,
+                    block_tables: torch.Tensor, *, d: int,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Per-slot form of paged_page_scores_ref (the JAX oracle's
+    signature): q_bits [B, Hk, G, W]; block_tables [B, nb]; lengths [B].
+    Returns [B, Hk, nb] int32."""
+    b, hk, g, w = q_bits.shape
+    tables, counts, _ = row_tables(block_tables, lengths, hk,
+                                   k_pool.shape[-1])
+    out = paged_page_scores_ref(q_bits.reshape(b * hk, g, w), k_pool,
+                                tables, counts, d=d)
+    return out.reshape(b, hk, -1)
+
+
+def top_blocks(scores: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices [..., n] of the n highest scores along the last axis, ties
+    to the lowest index (as ``lax.top_k``; ``torch.topk`` makes no such
+    promise): a stable descending sort, cut to n. int64, in rank order."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :n]
+
+
+def selection_scores(scores: torch.Tensor, lengths: torch.Tensor, *,
+                     page: int) -> torch.Tensor:
+    """[..., nb] page scores, [...] lengths -> scores with blocks past the
+    frontier forced to -BIG and the frontier (the block of token
+    lengths-1) forced to +BIG, so it is always selected."""
+    nb = scores.shape[-1]
+    blocks = torch.arange(nb, dtype=torch.int64, device=scores.device)
+    lengths = lengths.to(torch.int64)[..., None]
+    frontier = (lengths - 1).clamp_min(0) // page
+    s = torch.where(blocks * page < lengths, scores.to(torch.int64), -BIG)
+    return torch.where(blocks == frontier, BIG, s)
+
+
+def paged_sparse_decode_attention_ref(q_bits: torch.Tensor,
+                                      k_pool: torch.Tensor,
+                                      v_pool: torch.Tensor,
+                                      block_tables: torch.Tensor, *, d: int,
+                                      nsel: int,
+                                      scale: float | torch.Tensor,
+                                      lengths: torch.Tensor,
+                                      page_topn: int) -> torch.Tensor:
+    """Plain two-phase page-sparse decode (the ops page_topn= path).
+
+    Phase 1: page_scores_ref per (slot, kv-head). Selection: the top
+    page_topn pages per row, the frontier forced in and pages past it
+    forced out. Phase 2: the paged decode over the FULL table with the
+    dropped pages' counts set to 0 -- the kept set the compacted-table
+    kernel attends, expressed as a mask instead of a compaction.
+
+    Shapes as paged_decode_attention_ref. Returns [B, Hk, G, Dv] float32.
     """
     b, hk, g, w = q_bits.shape
-    k_rows, v_rows = gather_rows(k_pool, v_pool, block_tables)
-    t = k_rows.shape[2]
-    lens = lengths.to(torch.int32)[:, None].expand(b, hk).reshape(-1)
-    out = decode_attention_ref(q_bits.reshape(b * hk, g, w),
-                               k_rows.reshape(b * hk, t, w),
-                               v_rows.reshape(b * hk, t, -1), d=d, nsel=nsel,
-                               scale=scale, lengths=lens)
+    page = k_pool.shape[-1]
+    nb = block_tables.shape[1]
+    tables, counts, len_f = row_tables(block_tables, lengths, hk, page)
+    scores = page_scores_ref(q_bits, k_pool, block_tables, d=d,
+                             lengths=lengths).reshape(b * hk, nb)
+    idx = top_blocks(selection_scores(scores, len_f, page=page),
+                     min(page_topn, nb))
+    keep = torch.zeros_like(counts, dtype=torch.bool).scatter_(1, idx, True)
+    out = paged_decode_attention_rows_ref(
+        q_bits.reshape(b * hk, g, w), k_pool, v_pool, tables,
+        torch.where(keep, counts, 0), d=d, nsel=nsel, scale=scale)
     return out.reshape(b, hk, g, -1)
 
 

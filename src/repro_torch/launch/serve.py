@@ -1,14 +1,16 @@
 """Serving launcher for the PyTorch port: continuous-batching HAD inference
-over the paged packed-bit K cache, with staggered mixed-length requests.
+over the packed-bit K cache, with staggered mixed-length requests.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --paged                          # on the GPU (the default device)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-      --reduced --paged --device cpu --prompt-len 16 --gen 4
+      --reduced --page-topn 2 --device cpu --prompt-len 16 --gen 4
 
-Weights are random, drawn from --seed. This slice serves the binary paged
-path only; the JAX launcher's --baseline, --swap-pages, --page-topn,
---async and --mesh-model options wait for later slices (ROADMAP.md).
+The cache is dense (per-slot rows) unless --paged, --prefix-cache or
+--page-topn asks for the paged pool. Weights are random, drawn from
+--seed. This slice serves the binary path only; the JAX launcher's
+--baseline, --swap-pages, --async and --mesh-model options wait for later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernel versions)")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache (required: the only cache this "
-                         "slice of the port serves)")
+                    help="paged KV cache (block tables + shared page pool); "
+                         "the default is the dense cache")
     ap.add_argument("--prompt-len", type=int, default=64,
                     help="mean prompt length")
     ap.add_argument("--len-spread", type=float, default=0.5,
@@ -48,7 +50,12 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=0,
                     help="page pool size (0: dense-equivalent capacity)")
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="automatic prefix caching (implies --paged)")
+    ap.add_argument("--page-topn", type=int, default=0,
+                    help="two-phase page-sparse decode (implies --paged): "
+                         "attend only each row's top-N pages by their "
+                         "popcount score bound, plus the frontier page")
     ap.add_argument("--policy", choices=("fcfs", "shortest-prompt"),
                     default="fcfs")
     ap.add_argument("--victim-policy", choices=("youngest", "longest-idle"),
@@ -61,9 +68,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if not (args.paged or args.prefix_cache):
-        raise SystemExit("repro_torch serves the paged KV cache only: pass "
-                         "--paged (the dense cache is on the ROADMAP)")
+    paged = args.paged or args.prefix_cache or bool(args.page_topn)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -79,9 +84,10 @@ def main(argv=None):
     telemetry = Telemetry(fence=True) if args.metrics else None
     eng = Engine(cfg, model, ServeConfig(
         max_len=max_len, batch_slots=args.slots,
-        prefill_chunk=args.prefill_chunk, binary=True, paged=True,
+        prefill_chunk=args.prefill_chunk, binary=True, paged=paged,
         page_size=args.page_size, n_pages=args.n_pages or None,
         policy=args.policy, prefix_cache=args.prefix_cache,
+        page_topn=args.page_topn or None,
         victim_policy=args.victim_policy), telemetry=telemetry,
         device=device)
     sampling = SamplingParams(temperature=args.temperature,
@@ -119,10 +125,16 @@ def main(argv=None):
     print(f"wall {dt:.2f}s  decode_steps={eng.stats['decode_steps']} "
           f"prefill_chunks={eng.stats['prefill_chunks']} "
           f"({gen_tok / dt:.1f} generated tok/s)")
-    a = eng.allocator
-    print(f"kv pool: peak {a.peak_in_use}/{a.n_pages} pages x {a.page_size} "
-          f"tok, {eng.stats['preemptions']} preemptions, max "
-          f"{eng.stats['max_residents']} concurrent residents")
+    if paged:
+        a = eng.allocator
+        print(f"kv pool: peak {a.peak_in_use}/{a.n_pages} pages x "
+              f"{a.page_size} tok, {eng.stats['preemptions']} preemptions, "
+              f"max {eng.stats['max_residents']} concurrent residents")
+        mode = (f"top-{args.page_topn} page-sparse" if args.page_topn
+                else "dense")
+        print(f"decode traffic ({mode}): "
+              f"{eng.stats['decode_pages_touched']} pages attended, "
+              f"~{eng.stats['decode_hbm_bytes']} B KV read")
     if args.prefix_cache:
         print(f"prefix cache: {eng.stats['cached_tokens']} prompt tok "
               f"served from cached pages")

@@ -1,15 +1,23 @@
-"""GQA attention block, serving half, binary paged path (torch twin of the
+"""GQA attention block, serving half, binary path (torch twin of the
 serving code in ``repro.models.attention_block``).
 
-Keys and queries are binarized after RoPE and packed to 32-bit words; the
-K cache is a shared pool of bit-plane pages and V a pool of pages in the
-model dtype, addressed through per-slot block tables. Prefill chunks
-gather every slot's pages into rows and run the prefill kernel; decode
-steps read pages in place through the paged decode kernel. Both go
-through ``repro_torch.kernels.ops``, which dispatches by tensor device.
+Keys and queries are binarized after RoPE and packed to 32-bit words. Two
+caches, as in the JAX package:
 
-The pools are updated IN PLACE (index_put_), unlike the JAX package's
-functional `.at[].set`, so a step never copies a pool.
+  * paged -- the K cache is a shared pool of bit-plane pages and V a pool
+    of pages in the model dtype, addressed through per-slot block tables.
+    Prefill chunks gather every slot's pages into rows and run the prefill
+    kernel; decode steps read pages in place through the paged decode
+    kernel, optionally page-sparse (``page_topn``).
+  * dense -- per-slot k_bits [B, Hk, W, max_len + 1] bit-planes and v
+    [B, Hk, max_len + 1, Dh] rows. Prefill runs the prefill kernel over the
+    cache rows; decode runs the contiguous-cache decode kernel.
+
+All go through ``repro_torch.kernels.ops``, which dispatches by tensor
+device. Caches are updated IN PLACE (index_put_), unlike the JAX package's
+functional updates, so a step never copies a cache. Writes that must be
+dropped go to a trash page (paged) or a trash position (dense) at the end
+of the cache instead, which no read ever treats as valid.
 """
 from __future__ import annotations
 
@@ -53,6 +61,62 @@ class Attention(nn.Module):
         sq = np.float32(self.sigma_q.item())
         sk = np.float32(self.sigma_k.item())
         self.scale = float(np.float32(sq * sk) * np.float32(self.dh ** -0.5))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> dict:
+    """One layer's dense cache: k_bits [B, Hk, W, max_len+1] int32
+    bit-planes and v [B, Hk, max_len+1, Dh] in the model dtype. Position
+    ``max_len`` is a trash position that absorbs dropped writes; no length
+    ever reaches it, and positions [0, max_len) match the JAX cache."""
+    hk, dh = cfg.n_kv_heads, cfg.dh
+    w = hamming.packed_words(dh)
+    return {
+        "k_bits": torch.zeros((batch, hk, w, max_len + 1), dtype=torch.int32,
+                              device=device),
+        "v": torch.zeros((batch, hk, max_len + 1, dh), dtype=cfg.dtype,
+                         device=device),
+    }
+
+
+def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 axis: int, n_valid: torch.Tensor | None = None,
+                 active: torch.Tensor | None = None) -> None:
+    """Write `new` into the dense cache `buf` at per-slot positions, in
+    place.
+
+    buf [B, ...] with max_len+1 positions on `axis` (the last one the trash
+    position); new [B, ...] with S tokens on `axis`; pos [B] position of
+    new's token 0 per slot. Exactly [pos, pos + n_valid) of active rows is
+    written; padding tokens (j >= n_valid[b]), inactive rows and positions
+    past max_len go to the trash position. Dropped tokens are never
+    clamped onto real positions: index_put_ with duplicate indices that
+    carry different values leaves the result undefined.
+    """
+    b, s = new.shape[0], new.shape[axis]
+    trash = buf.shape[axis] - 1
+    steps = torch.arange(s, device=buf.device)
+    gpos = pos.to(torch.int64)[:, None] + steps[None]              # [B, S]
+    ok = gpos < trash
+    if n_valid is not None:
+        ok = ok & (steps[None] < n_valid.to(torch.int64)[:, None])
+    if active is not None:
+        ok = ok & active[:, None]
+    rows = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    # a view with the token axis second: index_put_ writes through it
+    torch.movedim(buf, axis, 1)[rows, torch.where(ok, gpos, trash)] = \
+        torch.movedim(new, axis, 1).to(buf.dtype)
+
+
+def _update_binary_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                         pos: torch.Tensor,
+                         n_valid: torch.Tensor | None = None,
+                         active: torch.Tensor | None = None) -> None:
+    """k, v [B, Hk, S, Dh] written into the dense cache in place."""
+    kb = hamming.pack_bits(k.to(torch.float32))            # [B, Hk, S, W]
+    _cache_write(cache["k_bits"], kb.transpose(-1, -2), pos, axis=3,
+                 n_valid=n_valid, active=active)
+    _cache_write(cache["v"], v, pos, axis=2, n_valid=n_valid, active=active)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
@@ -140,15 +204,18 @@ def _out(p: Attention, ctx: torch.Tensor) -> torch.Tensor:
 
 def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                cache: dict, pos: torch.Tensor, n: int,
-               block_tables: torch.Tensor,
+               block_tables: torch.Tensor | None = None,
                n_valid: torch.Tensor | None = None,
-               active: torch.Tensor | None = None) -> torch.Tensor:
-    """Prefill chunk (S > 1) or decode step (S == 1), binary paged path.
+               active: torch.Tensor | None = None,
+               page_topn: int | None = None) -> torch.Tensor:
+    """Prefill chunk (S > 1) or decode step (S == 1), binary path.
 
     x [B, S, D]; pos [B] per-slot position of x[:, 0]; block_tables
-    [B, nb] raw table; n_valid [B] real tokens per row of a padded chunk
-    (the valid cache length becomes pos + n_valid); active [B] rows whose
-    writes land. Updates `cache` in place and returns y [B, S, D].
+    [B, nb] raw table of a paged cache, or None for the dense cache;
+    n_valid [B] real tokens per row of a padded chunk (the valid cache
+    length becomes pos + n_valid); active [B] rows whose writes land;
+    page_topn: page-sparse decode over the paged cache (decode steps
+    only). Updates `cache` in place and returns y [B, S, D].
     """
     b, s, _ = x.shape
     dh, h, hk = cfg.dh, cfg.n_heads, cfg.n_kv_heads
@@ -159,17 +226,31 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     if cfg.pos == "rope":
         q = common.apply_rope(q, q_pos, theta=cfg.rope_theta)
         k = common.apply_rope(k, q_pos, theta=cfg.rope_theta)
+    kv_len = pos + (s if n_valid is None else n_valid)
+    qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
+    if block_tables is None:
+        _update_binary_cache(cache, k, v, pos, n_valid=n_valid,
+                             active=active)
+        if s == 1:
+            y = ops.decode_attention(
+                qb[:, :, 0], cache["k_bits"], cache["v"], d=dh, nsel=n,
+                scale=p.scale, lengths=kv_len, bitplanes=True)[:, :, None]
+        else:
+            y = ops.prefill_attention(
+                qb, ops.to_bitplanes(cache["k_bits"]), cache["v"], d=dh,
+                nsel=n, scale=p.scale, kv_length=kv_len, q_offset=pos,
+                q_length=n_valid, causal=cfg.causal)
+        return _out(p, y.to(x.dtype))
     # writes see the RAW table (a -1 under a valid token is dropped);
     # reads clamp -1 to page 0, which only ever lies past a row's length
     bt = block_tables.clamp_min(0)
     _update_binary_cache_paged(cache, k, v, pos, block_tables,
                                n_valid=n_valid, active=active)
-    kv_len = pos + (s if n_valid is None else n_valid)
-    qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
     if s == 1:
         y = ops.paged_decode_attention(
             qb[:, :, 0], cache["k_bits"], cache["v"], block_tables, d=dh,
-            nsel=n, scale=p.scale, lengths=kv_len)[:, :, None]
+            nsel=n, scale=p.scale, lengths=kv_len,
+            page_topn=page_topn)[:, :, None]
     else:
         k_rows = gather_pages(cache["k_bits"], bt, 3)      # [B, Hk, W, T]
         v_rows = gather_pages(cache["v"], bt, 2)           # [B, Hk, T, Dh]

@@ -10,10 +10,10 @@ A thin facade over the scheduler/runner split:
     sampled tokens.
   * `Engine.step()` is exactly `commit(plan, execute(schedule()))`.
 
-This slice serves `ServeConfig(paged=True, binary=True)`, with recompute
-preemption and `prefix_cache` (both scheduler-only). Everything else
-raises NotImplementedError when the engine builds its runner; see
-ROADMAP.md.
+This slice serves `ServeConfig(binary=True)` over the paged cache (with
+recompute preemption, `prefix_cache` and page-sparse decode, `page_topn`)
+or the dense cache (`paged=False`). Everything else raises
+NotImplementedError when the engine builds its runner; see ROADMAP.md.
 The engine runs on the card unless the caller asks for the CPU.
 """
 from __future__ import annotations

@@ -53,11 +53,8 @@ def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     this slice of the port does not serve."""
     T.check_supported(cfg)
     missing = [
-        (not scfg.paged, "the dense (non-paged) KV cache (paged=False)"),
         (not scfg.binary, "the full-precision baseline (binary=False)"),
         (scfg.swap_pages > 0, "swap-out preemption (swap_pages > 0)"),
-        (scfg.page_topn is not None,
-         "page-sparse decode (page_topn) and its kernel K3"),
         (scfg.mesh is not None, "tensor-parallel serving (mesh)"),
     ]
     for hit, what in missing:
@@ -115,17 +112,21 @@ class ModelRunner:
         self.n = scfg.topn if scfg.topn is not None else cfg.had.topn(scfg.max_len)
         self.chunk = max(1, min(scfg.prefill_chunk, scfg.max_len))
         self.page = scfg.page_size
-        self.n_pages = (scfg.n_pages if scfg.n_pages is not None
-                        else scfg.batch_slots
-                        * pages_needed(scfg.max_len, self.page))
-        # decode HBM traffic model (host-side, per attention layer x
-        # kv-head): bytes of one page of packed K bit-planes and of V
-        elem = torch.empty((), dtype=cfg.dtype).element_size()
-        self._page_v_bytes = self.page * cfg.dh * elem
-        self._page_k_bytes = hamming.packed_words(cfg.dh) * 4 * self.page
-        self._attn_rows = cfg.n_layers * cfg.n_kv_heads
-        self.caches = T.init_caches(cfg, n_pages=self.n_pages,
-                                    page_size=self.page, device=self.device)
+        self.n_pages = 0
+        if scfg.paged:
+            self.n_pages = (scfg.n_pages if scfg.n_pages is not None
+                            else scfg.batch_slots
+                            * pages_needed(scfg.max_len, self.page))
+            # decode HBM traffic model (host-side, per attention layer x
+            # kv-head): bytes of one page of packed K bit-planes and of V
+            elem = torch.empty((), dtype=cfg.dtype).element_size()
+            self._page_v_bytes = self.page * cfg.dh * elem
+            self._page_k_bytes = hamming.packed_words(cfg.dh) * 4 * self.page
+            self._attn_rows = cfg.n_layers * cfg.n_kv_heads
+        self.caches = T.init_caches(
+            cfg, paged=scfg.paged, batch=scfg.batch_slots,
+            max_len=scfg.max_len, n_pages=self.n_pages, page_size=self.page,
+            device=self.device)
 
     def sync(self) -> None:
         """Block until every queued device write has landed (the fence
@@ -133,7 +134,9 @@ class ModelRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _dev(self, arr, dtype) -> torch.Tensor:
+    def _dev(self, arr, dtype) -> torch.Tensor | None:
+        if arr is None:             # the dense cache's block tables
+            return None
         return torch.from_numpy(np.asarray(arr, dtype)).to(self.device)
 
     # ------------------------------------------------------------------
@@ -141,7 +144,7 @@ class ModelRunner:
     # ------------------------------------------------------------------
     def prefill_step(self, tokens: np.ndarray, pos: np.ndarray,
                      active: np.ndarray, n_valid: np.ndarray,
-                     block_tables: np.ndarray) -> torch.Tensor:
+                     block_tables: np.ndarray | None) -> torch.Tensor:
         """One padded prefill chunk: tokens [B, chunk] zero-padded, per-row
         pos/active/n_valid masks. Returns last-valid logits [B, 1, V]."""
         logits = T.serve_step(
@@ -156,26 +159,40 @@ class ModelRunner:
 
     def decode_step(self, tokens: np.ndarray, pos: np.ndarray,
                     active: np.ndarray,
-                    block_tables: np.ndarray) -> torch.Tensor:
+                    block_tables: np.ndarray | None) -> torch.Tensor:
         """One batched ragged decode step; returns logits [B, 1, V]."""
         logits = T.serve_step(
             self.model, self._dev(tokens, np.int64)[:, None], self.caches,
             pos=self._dev(pos, np.int32), n=self.n,
             block_tables=self._dev(block_tables, np.int32),
-            active=self._dev(active, bool), logits_mode="last")
-        self._count_decode_traffic(pos, active)
+            active=self._dev(active, bool), page_topn=self.scfg.page_topn,
+            logits_mode="last")
+        if self.scfg.paged:
+            self._count_decode_traffic(pos, active)
         return logits
 
     def _count_decode_traffic(self, pos: np.ndarray,
                               active: np.ndarray) -> None:
         """Host-side pages-touched / HBM-byte accounting for one paged
-        decode step: every resident page's k_bits and V, summed over
-        active slots, attention layers and kv heads."""
+        decode step, as the JAX runner counts it.
+
+        `decode_pages_touched` counts pages whose V is read, summed over
+        active slots (not multiplied by layers or kv heads).
+        `decode_hbm_bytes` is the K+V traffic over all attention layers and
+        kv heads: the dense walk reads every resident page's k_bits and V;
+        page-sparse phase 1 reads every resident page's k_bits and phase 2
+        only the min(page_topn, resident) selected pages' k_bits and V.
+        """
         res = (np.asarray(pos, np.int64)[np.asarray(active, bool)]
                + self.page) // self.page          # ceil((pos+1)/page)
-        self.stats["decode_pages_touched"] += int(res.sum())
-        step_bytes = int((res * (self._page_k_bytes
-                                 + self._page_v_bytes)).sum())
+        ptn = self.scfg.page_topn
+        sel = res if ptn is None else np.minimum(res, ptn)
+        self.stats["decode_pages_touched"] += int(sel.sum())
+        kb, vb = self._page_k_bytes, self._page_v_bytes
+        if ptn is None:
+            step_bytes = int((res * (kb + vb)).sum())
+        else:
+            step_bytes = int((res * kb + sel * (kb + vb)).sum())
         self.stats["decode_hbm_bytes"] += step_bytes * self._attn_rows
 
     # ------------------------------------------------------------------

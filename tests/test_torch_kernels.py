@@ -1,28 +1,38 @@
-"""The two ported kernels: plain versions against the JAX Pallas kernels,
+"""The five ported kernels: plain versions against the JAX Pallas kernels,
 and the CUDA kernels against the plain versions.
 
 On the CPU the port's ops layer runs the kernels' plain versions; they are
 held against the JAX package's Pallas kernels run in interpret mode on the
-same numpy-seeded inputs (float32 atol 1e-6, rtol 1e-5: the two sum the
-same terms in different orders, and the Pallas kernels skip the softmax's
-max subtraction). The CUDA cases need a card and skip without one; on the
-card they hold the kernels to the plain versions at atol 1e-5, rtol 1e-4.
-The machine with the card has no JAX: there the JAX cases skip and the
-CUDA cases run (`python -m pytest tests/test_torch_kernels.py`).
+same numpy-seeded inputs: integers (scores, page bounds, selected tables)
+exactly, float32 outputs at atol 1e-6, rtol 1e-5 (the two sum the same
+terms in different orders). Inside the port, the same tokens give
+bit-identical decode outputs on the dense cache, the paged cache and a
+compacted page table that keeps every resident page. The CUDA cases need a
+card and skip without one; on the card they hold the kernels to the plain
+versions (floats at atol 1e-5, rtol 1e-4; integers exactly). The machine
+with the card has a CUDA build of JAX too: run this file there with
+`JAX_PLATFORMS=cpu` (`JAX_PLATFORMS=cpu python -m pytest
+tests/test_torch_kernels.py`), or JAX's float32 matmuls run in TF32. The
+JAX cases skip where JAX is missing.
 """
 import numpy as np
 import pytest
 import torch
+from _hypothesis_compat import given, settings, st
 
 try:
     import jax.numpy as jnp
+    from repro.kernels import binary_page_score as JPS
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
 except ImportError:
-    jnp = jops = jref = None
+    jnp = JPS = jops = jref = None
 from repro_torch.core import hamming as th
+from repro_torch.kernels import binary_decode_attention as dec
+from repro_torch.kernels import binary_page_score as pscore
 from repro_torch.kernels import binary_paged_decode_attention as pdec
 from repro_torch.kernels import binary_prefill_attention as pre
+from repro_torch.kernels import hamming_score as hs
 from repro_torch.kernels import ops, ref
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -172,21 +182,264 @@ def test_row_tables_match_jax(jax_ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_page_topn_is_not_ported():
-    qb, k_pool, v_pool, bt, lens = _paged_inputs(1, 2, 1, 2, 8, 16, 16, 4,
-                                                 [9], seed=0)
-    with pytest.raises(NotImplementedError, match="K3"):
-        ops.paged_decode_attention(
-            _t(qb), _t(k_pool), torch.from_numpy(v_pool),
-            torch.from_numpy(bt), d=16, nsel=4, scale=0.25,
-            lengths=torch.from_numpy(lens), page_topn=1)
+def test_plain_paged_decode_takes_the_kernels_row_tables(jax_ref):
+    """The CPU path runs K2's plain version on the row tables and counts
+    the kernel takes; the per-slot JAX oracle agrees with it."""
+    b, h, hk, nb, page, d, dv, n_pages, lengths, nsel = PAGED_CASES[
+        "ragged_tail"]
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, n_pages, lengths, seed=3)
+    tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
+                                        torch.from_numpy(lens), hk, page)
+    g = h // hk
+    got = ref.paged_decode_attention_rows_ref(
+        _t(qb.reshape(b * hk, g, -1)), _t(k_pool), torch.from_numpy(v_pool),
+        tables, counts, d=d, nsel=nsel, scale=0.25)
+    want = jref.paged_decode_attention_ref(
+        jnp.asarray(qb.reshape(b, hk, g, -1)), jnp.asarray(k_pool),
+        jnp.asarray(v_pool), jnp.asarray(bt), d=d, nsel=nsel, scale=0.25,
+        lengths=jnp.asarray(lens))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).reshape(b * hk, g, dv), **TOL)
+
+
+def test_out_of_range_table_entries_count_as_zero():
+    """K2's and K3's plain versions, like the kernels, read table entries
+    outside [0, n_pages) as count 0, whatever count they carry."""
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(1, 2, 1, 4, 8, 48, 8, 6,
+                                                 [32], seed=4, holes=False)
+    tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
+                                        torch.from_numpy(lens), 1, 8)
+    bad = tables.clone()
+    bad[0, 1], bad[0, 3] = 6, -3                 # n_pages, negative
+    zeroed = counts.clone()
+    zeroed[0, 1] = zeroed[0, 3] = 0
+    args = (_t(qb).reshape(1, 2, -1), _t(k_pool))
+    got = ref.paged_page_scores_ref(*args, bad, counts, d=48)
+    assert got[0, 1] == got[0, 3] == -48
+    np.testing.assert_array_equal(
+        got.numpy(), ref.paged_page_scores_ref(*args, tables, zeroed,
+                                               d=48).numpy())
+    kw = dict(d=48, nsel=5, scale=0.25)
+    v = torch.from_numpy(v_pool)
+    assert torch.equal(
+        ref.paged_decode_attention_rows_ref(*args[:1], args[1], v, bad,
+                                            counts, **kw),
+        ref.paged_decode_attention_rows_ref(*args[:1], args[1], v, tables,
+                                            zeroed, **kw))
+
+
+# ---------------------------------------------------------------------------
+# K3: page scores, and page-sparse decode through select_pages
+# ---------------------------------------------------------------------------
+
+SPARSE_CASE = (2, 4, 2, 6, 8, 64, 16, 13, [48, 38], 10)
+
+
+@pytest.mark.parametrize("d", [16, 48, 64])
+def test_page_scores_plain_match_jax_kernel(jax_ref, d):
+    """Count-0 blocks (-1 entries past each row's pages, a zero-length
+    row) score exactly -d; d = 48 has 16 tail bits per query word."""
+    b, h, hk, nb, page = 3, 4, 2, 6, 8
+    g = h // hk
+    qb, k_pool, _, bt, lens = _paged_inputs(b, h, hk, nb, page, d, 8, 20,
+                                            [48, 19, 0], seed=d)
+    jt, jc, _ = jops._row_tables(jnp.asarray(bt), jnp.asarray(lens), hk,
+                                 page)
+    qf = qb.reshape(b * hk, g, -1)
+    want = np.asarray(JPS.paged_page_scores(
+        jnp.asarray(qf), jnp.asarray(k_pool), jt, jc, d=d, n_kv_heads=hk,
+        interpret=True))
+    tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
+                                        torch.from_numpy(lens), hk, page)
+    got = ref.paged_page_scores_ref(_t(qf), _t(k_pool), tables, counts, d=d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[counts == 0] == -d).all() and (counts == 0).sum() > nb
+    twin = ref.page_scores_ref(_t(qb.reshape(b, hk, g, -1)), _t(k_pool),
+                               torch.from_numpy(bt), d=d,
+                               lengths=torch.from_numpy(lens))
+    np.testing.assert_array_equal(twin.numpy(), np.asarray(jref.page_scores_ref(
+        jnp.asarray(qb.reshape(b, hk, g, -1)), jnp.asarray(k_pool),
+        jnp.asarray(bt), d=d, lengths=jnp.asarray(lens))))
+
+
+@given(st.integers(1, 7), st.integers(0, 10_000))
+@settings(max_examples=20, deadline=None)
+def test_select_pages_matches_jax(n_sel, seed):
+    """Tables, counts and logical ids equal JAX's exactly, on scores drawn
+    from three levels so that ties are everywhere (lax.top_k breaks them
+    toward the lowest block)."""
+    if jops is None:
+        pytest.skip("needs the JAX reference package")
+    r, nb, page, n_pages = 5, 6, 8, 40
+    rng = np.random.default_rng(seed)
+    scores = (rng.integers(-1, 2, size=(r, nb)) * 2).astype(np.int32)
+    bt = rng.integers(0, n_pages, size=(r, nb)).astype(np.int32)
+    bt[:, -2:] = -1
+    lengths = rng.integers(0, (nb - 2) * page + 1, size=r).astype(np.int32)
+    want = jops.select_pages(jnp.asarray(scores), jnp.asarray(bt),
+                             jnp.asarray(lengths), page=page, n_sel=n_sel)
+    got = ops.select_pages(torch.from_numpy(scores), torch.from_numpy(bt),
+                           torch.from_numpy(lengths), page=page, n_sel=n_sel)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("page_topn", [1, 2, 3])
+def test_paged_sparse_plain_matches_jax(jax_ref, page_topn):
+    b, h, hk, nb, page, d, dv, n_pages, lengths, nsel = SPARSE_CASE
+    g = h // hk
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, n_pages, lengths, seed=17)
+    kw = dict(d=d, nsel=nsel, scale=0.125, page_topn=page_topn)
+    want = np.asarray(jops.paged_decode_attention(
+        jnp.asarray(qb), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(bt), lengths=jnp.asarray(lens), interpret=True, **kw))
+    got = ops.paged_decode_attention(
+        _t(qb), _t(k_pool), torch.from_numpy(v_pool), torch.from_numpy(bt),
+        lengths=torch.from_numpy(lens), **kw).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    twin = ref.paged_sparse_decode_attention_ref(
+        _t(qb.reshape(b, hk, g, -1)), _t(k_pool), torch.from_numpy(v_pool),
+        torch.from_numpy(bt), lengths=torch.from_numpy(lens), **kw)
+    jtwin = jref.paged_sparse_decode_attention_ref(
+        jnp.asarray(qb.reshape(b, hk, g, -1)), jnp.asarray(k_pool),
+        jnp.asarray(v_pool), jnp.asarray(bt), lengths=jnp.asarray(lens), **kw)
+    np.testing.assert_allclose(twin.numpy(), np.asarray(jtwin), **TOL)
+    np.testing.assert_allclose(got, twin.reshape(b, h, dv).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("page_topn", [3, 4, 5, 6, 9])
+def test_page_topn_covering_resident_pages_is_bit_identical(page_topn):
+    """page_topn >= each row's resident pages: the compacted table lists
+    every resident page in logical order, then count-0 entries, and the
+    result equals the full-table walk bit for bit (for page_topn < nb the
+    page scores run)."""
+    b, h, hk, nb, page, d, dv = 3, 4, 2, 6, 8, 64, 16
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, 20, [24, 13, 1], seed=21)
+    args = (_t(qb), _t(k_pool), torch.from_numpy(v_pool),
+            torch.from_numpy(bt))
+    kw = dict(d=d, nsel=7, scale=0.125, lengths=torch.from_numpy(lens))
+    assert torch.equal(ops.paged_decode_attention(*args, **kw),
+                       ops.paged_decode_attention(*args, page_topn=page_topn,
+                                                  **kw))
+
+
+# ---------------------------------------------------------------------------
+# K4: decode over a contiguous (dense) cache
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = {
+    # name: (b, h, hk, t, d, dv, nsel, lengths)
+    "ragged": (3, 4, 2, 48, 48, 16, 5, [48, 17, 1]),
+    "smollm_like": (2, 6, 2, 80, 64, 16, 10, [80, 33]),
+    "n_exceeds": (1, 2, 1, 32, 16, 8, 1000, [20]),
+}
+
+
+def _decode_inputs(b, h, hk, t, d, dv, seed):
+    v = np.random.default_rng(seed + 2).normal(
+        size=(b, hk, t, dv)).astype(np.float32)
+    return _bits((b, h, d), seed), _bits((b, hk, t, d), seed + 1), v
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_jax_kernel(jax_ref, case):
+    b, h, hk, t, d, dv, nsel, lengths = DECODE_CASES[case]
+    qb, kb, v = _decode_inputs(b, h, hk, t, d, dv, seed=len(case))
+    lens = np.asarray(lengths, np.int32)
+    kw = dict(d=d, nsel=nsel, scale=float(np.float32(1 / np.sqrt(d))))
+    want = np.asarray(jops.decode_attention(
+        jnp.asarray(qb), jnp.asarray(kb), jnp.asarray(v),
+        lengths=jnp.asarray(lens), block_t=16, interpret=True, **kw))
+    got = ops.decode_attention(_t(qb), _t(kb), torch.from_numpy(v),
+                               lengths=torch.from_numpy(lens), **kw)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the dense cache's own bit-plane layout gives the same result
+    planes = _t(kb).transpose(-1, -2).contiguous()
+    assert torch.equal(got, ops.decode_attention(
+        _t(qb), planes, torch.from_numpy(v), lengths=torch.from_numpy(lens),
+        bitplanes=True, **kw))
+
+
+def _dense_and_paged(b, h, hk, nb, page, d, dv, t_dense, lengths, seed):
+    """The same tokens in a dense cache of t_dense positions (garbage past
+    each row's length) and in shuffled pages of a pool."""
+    rng = np.random.default_rng(seed)
+    qb = _bits((b, h, d), seed + 1)
+    kb = _bits((b, hk, t_dense, d), seed + 2)
+    v = rng.normal(size=(b, hk, t_dense, dv)).astype(np.float32)
+    w = kb.shape[-1]
+    n_pages = b * nb + 2
+    k_pool = _bits((n_pages, hk, page, d), seed + 3).swapaxes(-1, -2).copy()
+    v_pool = rng.normal(size=(n_pages, hk, page, dv)).astype(np.float32)
+    bt = rng.permutation(n_pages)[: b * nb].reshape(b, nb).astype(np.int32)
+    for i, n in enumerate(lengths):
+        for j in range(-(-n // page)):
+            lo, hi = j * page, min((j + 1) * page, n)
+            k_pool[bt[i, j], :, :, : hi - lo] = kb[i, :, lo:hi].swapaxes(
+                -1, -2)
+            v_pool[bt[i, j], :, : hi - lo] = v[i, :, lo:hi]
+        bt[i, -(-n // page):] = -1
+    assert k_pool.shape[2] == w
+    return (qb, kb, v, k_pool, v_pool, bt, np.asarray(lengths, np.int32))
+
+
+def test_dense_decode_equals_paged_bit_for_bit():
+    """Dense cache (53 positions: neither a page nor a tile multiple),
+    paged cache, and a page-sparse table that keeps every resident page
+    give the same bits for the same tokens."""
+    b, h, hk, nb, page, d, dv = 3, 4, 2, 6, 8, 64, 16
+    qb, kb, v, k_pool, v_pool, bt, lens = _dense_and_paged(
+        b, h, hk, nb, page, d, dv, 53, [40, 19, 1], seed=9)
+    kw = dict(d=d, nsel=9, scale=0.125, lengths=torch.from_numpy(lens))
+    dense = ops.decode_attention(_t(qb), _t(kb), torch.from_numpy(v), **kw)
+    args = (_t(qb), _t(k_pool), torch.from_numpy(v_pool),
+            torch.from_numpy(bt))
+    assert torch.equal(dense, ops.paged_decode_attention(*args, **kw))
+    assert torch.equal(dense, ops.paged_decode_attention(*args, page_topn=5,
+                                                         **kw))
+
+
+# ---------------------------------------------------------------------------
+# K5: the binary score matrix
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("method", ["xor", "int8"])
+@pytest.mark.parametrize("d", [48, 64])
+def test_hamming_scores_match_jax(jax_ref, d, method):
+    qb, kb = _bits((2, 3, 5, d), d), _bits((2, 3, 7, d), d + 1)
+    want = np.asarray(jops.hamming_scores(
+        jnp.asarray(qb), jnp.asarray(kb), d, block_m=4, block_n=4,
+        method=method, interpret=True))
+    got = ops.hamming_scores(_t(qb), _t(kb), d, method=method)
+    assert got.dtype == torch.int32 and got.shape == (2, 3, 5, 7)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ref.hamming_score_ref(_t(qb), _t(kb), d).numpy(),
+        np.asarray(jref.hamming_score_ref(jnp.asarray(qb), jnp.asarray(kb),
+                                          d)))
+
+
+def test_hamming_scores_rejects_unknown_method():
+    qb = _t(_bits((2, 32), 0))
+    with pytest.raises(ValueError, match="method"):
+        ops.hamming_scores(qb, qb, 32, method="fp16")
 
 
 def test_cpu_tensors_never_launch_kernels(jax_ref):
     ops.reset_launch_counts()
     test_paged_decode_plain_matches_jax_kernel(None, "ragged_tail")
     test_prefill_plain_matches_jax_kernel(None, "ragged_gqa")
-    assert ops.launch_counts() == {pre.NAME: 0, pdec.NAME: 0}
+    test_paged_sparse_plain_matches_jax(None, 2)
+    test_decode_plain_matches_jax_kernel(None, "ragged")
+    test_hamming_scores_match_jax(None, 48, "int8")
+    counts = ops.launch_counts()
+    assert set(counts) == {pre.NAME, pdec.NAME, pscore.NAME, dec.NAME,
+                           hs.NAME}
+    assert not any(counts.values()), counts
 
 
 # ---------------------------------------------------------------------------
@@ -241,3 +494,104 @@ def test_paged_decode_cuda_matches_plain(cuda, case, vdtype):
     torch.cuda.synchronize()
     assert pdec.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 48, 64, 128])
+def test_page_scores_cuda_matches_plain(cuda, d):
+    """Exact integers, with count-0 blocks, a zero-length row and table
+    entries outside [0, n_pages)."""
+    b, h, hk, nb, page = 3, 6, 2, 40, 16
+    qb, k_pool, _, bt, lens = _paged_inputs(b, h, hk, nb, page, d, 8, 130,
+                                            [611, 17, 0], seed=d)
+    tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
+                                        torch.from_numpy(lens), hk, page)
+    tables[0, 3], tables[1, 0] = 130, -2
+    qf = _t(qb).reshape(b * hk, h // hk, -1)
+    want = ref.paged_page_scores_ref(qf, _t(k_pool), tables, counts, d=d)
+    before = pscore.launches
+    got = pscore.paged_page_scores(qf.to(cuda), _t(k_pool).to(cuda),
+                                   tables.to(cuda), counts.to(cuda), d=d)
+    torch.cuda.synchronize()
+    assert pscore.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_topn", [1, 3, 30])
+def test_paged_sparse_cuda_matches_plain(cuda, page_topn):
+    b, h, hk, nb, page, d, dv = 3, 6, 2, 40, 16, 64, 64
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, 130, [611, 170, 9], seed=page_topn)
+    args = [_t(qb), _t(k_pool), torch.from_numpy(v_pool).to(torch.bfloat16),
+            torch.from_numpy(bt)]
+    kw = dict(d=d, nsel=40, scale=0.125, page_topn=page_topn)
+    want = ops.paged_decode_attention(*args, lengths=torch.from_numpy(lens),
+                                      **kw)
+    before = (pscore.launches, pdec.launches)
+    got = ops.paged_decode_attention(*[a.to(cuda) for a in args],
+                                     lengths=torch.from_numpy(lens).to(cuda),
+                                     **kw)
+    torch.cuda.synchronize()
+    assert (pscore.launches, pdec.launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+
+CUDA_DECODE_CASES = dict(DECODE_CASES, long_d128_dv128=(
+    1, 4, 1, 24000, 128, 128, 500, [23900]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CUDA_DECODE_CASES))
+def test_decode_cuda_matches_plain(cuda, case, vdtype):
+    b, h, hk, t, d, dv, nsel, lengths = CUDA_DECODE_CASES[case]
+    qb, kb, v = _decode_inputs(b, h, hk, t, d, dv, seed=len(case))
+    planes = _t(kb).transpose(-1, -2).contiguous()
+    v = torch.from_numpy(v).to(vdtype)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    kw = dict(d=d, nsel=nsel, scale=0.125, bitplanes=True)
+    want = ops.decode_attention(_t(qb), planes, v, lengths=lens, **kw)
+    before = dec.launches
+    got = ops.decode_attention(_t(qb).to(cuda), planes.to(cuda), v.to(cuda),
+                               lengths=lens.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 48])
+def test_dense_and_paged_kernels_bit_identical(cuda, page):
+    """K4 on the dense cache, K2 on the pages and K2 on a page-sparse table
+    that keeps every resident page: the same bits, for any page size."""
+    b, h, hk, d, dv = 3, 6, 2, 64, 64
+    nb = 1600 // page
+    qb, kb, v, k_pool, v_pool, bt, lens = _dense_and_paged(
+        b, h, hk, nb, page, d, dv, 1601, [1500, 190, 1], seed=page)
+    kw = dict(d=d, nsel=100, scale=0.125,
+              lengths=torch.from_numpy(lens).to(cuda))
+    dense = ops.decode_attention(_t(qb).to(cuda), _t(kb).to(cuda),
+                                 torch.from_numpy(v).to(cuda), **kw)
+    args = [_t(qb), _t(k_pool), torch.from_numpy(v_pool),
+            torch.from_numpy(bt)]
+    args = [a.to(cuda) for a in args]
+    paged = ops.paged_decode_attention(*args, **kw)
+    sparse = ops.paged_decode_attention(*args, page_topn=-(-1500 // page),
+                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged) and torch.equal(dense, sparse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["xor", "int8"])
+@pytest.mark.parametrize("d", [48, 64, 128, 256])
+def test_hamming_scores_cuda_exact(cuda, d, method):
+    """Exact integers for M, N that are not tile multiples."""
+    qb, kb = _t(_bits((2, 70, d), d)), _t(_bits((2, 130, d), d + 1))
+    want = ops.hamming_scores(qb, kb, d, method=method)
+    before = hs.launches
+    got = ops.hamming_scores(qb.to(cuda), kb.to(cuda), d, method=method)
+    torch.cuda.synchronize()
+    assert hs.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -1,12 +1,14 @@
 """The port's serving slice against the JAX package.
 
 Configs field for field, the weight bridge bit for bit, `serve_step`
-logits (allclose) and k_bits pools (exactly) after the same prefill and
-decode steps, the copied Scheduler plan for plan, and greedy tokens of the
-port's Engine against the JAX Engine on reduced smollm-135m. The JAX side
-runs its Pallas kernels in interpret mode, as its own serving tests do.
-Also: ragged == sequential (with prefix caching and recompute preemption)
-inside the port, the unported features raising, the default device
+logits (allclose) and k_bits caches (exactly) after the same prefill and
+decode steps on the paged and the dense cache, the copied Scheduler plan
+for plan, and greedy tokens and decode-traffic counters of the port's
+Engine against the JAX Engine on reduced smollm-135m (paged, dense and
+page-sparse). The JAX side runs its Pallas kernels in interpret mode, as
+its own serving tests do. Also, inside the port: ragged == sequential
+(with prefix caching, page-sparse decode and recompute preemption), dense
+== paged bit for bit, the unported features raising, the default device
 refusing to fall back to the CPU, and the package importing no JAX.
 """
 import dataclasses
@@ -128,7 +130,8 @@ def test_serve_step_logits_and_pools_match_jax():
                                       binary=True, logits_mode="last"))
     jcaches = JM.init_caches(jcfg, b, nb * page, binary=True, paged=True,
                              n_pages=n_pages, page_size=page)
-    tcaches = T.init_caches(tcfg, n_pages=n_pages, page_size=page)
+    tcaches = T.init_caches(tcfg, paged=True, n_pages=n_pages,
+                            page_size=page)
     bt = np.array([[3, 7, 9, -1], [0, 5, -1, -1]], np.int32)
     rng = np.random.default_rng(0)
     # (tokens, pos, active, n_valid): three prefill chunks interleaving
@@ -167,9 +170,70 @@ def test_serve_step_logits_and_pools_match_jax():
                                    rtol=1e-5, atol=1e-6)
 
 
+def test_dense_serve_step_logits_and_cache_match_jax():
+    """The dense cache: logits allclose and k_bits equal to JAX's on
+    [0, max_len) after interleaved prefill chunks (inactive rows riding
+    along) and decode steps; the trash position is the port's own."""
+    n_layers, b, max_len, chunk, n = 2, 2, 24, 8, 4
+    jcfg, tcfg = _cfgs(n_layers=n_layers)
+    pj, _ = _params(n_layers)
+    model = _model(n_layers)
+    jstep = jax.jit(functools.partial(JM.serve_step, cfg=jcfg, n=n,
+                                      binary=True, logits_mode="last"))
+    jcaches = JM.init_caches(jcfg, b, max_len, binary=True)
+    tcaches = T.init_caches(tcfg, paged=False, batch=b, max_len=max_len)
+    rng = np.random.default_rng(1)
+    steps = []
+    for slot, pos, nv in ((0, 0, 8), (1, 0, 5), (0, 8, 3), (1, 5, 8)):
+        tok = np.zeros((b, chunk), np.int32)
+        tok[slot, :nv] = rng.integers(0, tcfg.vocab_size, nv)
+        pos_v = np.array([pos, 0], np.int32)[::1 - 2 * slot].copy()
+        steps.append((tok, pos_v, np.arange(b) == slot,
+                      np.where(np.arange(b) == slot, nv, 0).astype(np.int32)))
+    for pos in ((11, 13), (12, 14)):
+        steps.append((rng.integers(0, tcfg.vocab_size, (b, 1)).astype(
+            np.int32), np.array(pos, np.int32), np.ones(b, bool), None))
+    for tok, pos, active, nv in steps:
+        jl, jcaches = jstep(pj, {"tokens": jnp.asarray(tok)}, jcaches,
+                            pos=jnp.asarray(pos), active=jnp.asarray(active),
+                            n_valid=None if nv is None else jnp.asarray(nv))
+        tl = T.serve_step(model, torch.from_numpy(tok), tcaches,
+                          pos=torch.from_numpy(pos), n=n,
+                          active=torch.from_numpy(active),
+                          n_valid=None if nv is None else torch.from_numpy(nv),
+                          logits_mode="last")
+        rows = np.flatnonzero(active)
+        np.testing.assert_allclose(tl.numpy()[rows], np.asarray(jl)[rows],
+                                   **LOGIT_TOL)
+    for layer in range(n_layers):
+        jk = np.asarray(jcaches["pos0"]["k_bits"][layer])
+        tk = tcaches[layer]["k_bits"][..., :max_len].numpy().view(np.uint32)
+        np.testing.assert_array_equal(tk, jk)
+        assert jk.any()
+        np.testing.assert_allclose(tcaches[layer]["v"][:, :, :max_len].numpy(),
+                                   np.asarray(jcaches["pos0"]["v"][layer]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_dense_write_drops_padding_inactive_rows_and_overflow():
+    tcfg = get_config(ARCH, reduced=True)
+    cache = T.init_caches(tcfg, paged=False, batch=3, max_len=6)[0]
+    from repro_torch.models.attention_block import _cache_write
+    buf = cache["v"]                                 # [3, Hk, 7, Dh]
+    new = torch.arange(1, 5, dtype=buf.dtype)[None, None, :, None].expand(
+        3, buf.shape[1], 4, buf.shape[3])
+    _cache_write(buf, new, torch.tensor([0, 4, 1]), axis=2,
+                 n_valid=torch.tensor([2, 4, 3]),
+                 active=torch.tensor([True, True, False]))
+    got = buf[:, 0, :6, 0].tolist()
+    assert got[0] == [1, 2, 0, 0, 0, 0]        # padding past n_valid dropped
+    assert got[1] == [0, 0, 0, 0, 1, 2]        # positions past max_len dropped
+    assert got[2] == [0] * 6                   # inactive row untouched
+
+
 def test_paged_write_drops_minus_one_and_padding():
     tcfg = get_config(ARCH, reduced=True)
-    cache = T.init_caches(tcfg, n_pages=3, page_size=4)[0]
+    cache = T.init_caches(tcfg, paged=True, n_pages=3, page_size=4)[0]
     from repro_torch.models.attention_block import _paged_cache_write
     pool = cache["v"]
     new = torch.ones((2, 6, pool.shape[1], pool.shape[3]))
@@ -217,12 +281,79 @@ def test_engine_greedy_tokens_match_jax_engine():
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("variant", ["plain", "prefix_cache", "preempt"])
+@pytest.mark.parametrize("kw", [dict(paged=False), dict(page_topn=3)],
+                         ids=["dense", "page_topn"])
+def test_engine_greedy_tokens_match_jax_engine_on_new_paths(kw):
+    """The dense cache (K4 decode, K1 over cache rows) and page-sparse
+    decode (K3 + select_pages + K2 over compacted tables, with prompts
+    long enough that pages are dropped): tokens and decode-traffic
+    counters equal the JAX Engine's on its kernel path."""
+    jcfg, tcfg = _cfgs()
+    pj, _ = _params()
+    prompts = _prompts((13, 5, 30, 20), seed=6)
+    jeng = JEngine(jcfg, pj, _scfg(JServeConfig, 2, **kw))
+    teng = Engine(tcfg, _model(), _scfg(ServeConfig, 2, **kw), device="cpu")
+    want, got = _serve(jeng, prompts, 6), _serve(teng, prompts, 6)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for key in ("decode_steps", "decode_pages_touched", "decode_hbm_bytes"):
+        assert teng.stats[key] == jeng.stats[key], key
+    if "page_topn" in kw:
+        assert 0 < teng.stats["decode_pages_touched"] < sum(
+            -(-(len(p) + i) // 8) for p in prompts for i in range(1, 6))
+
+
+def test_dense_serving_equals_paged_bit_for_bit():
+    """serve_step logits on the dense cache equal the paged cache's, and a
+    page-sparse decode that keeps every resident page equals both."""
+    n_layers, b, page, nb, chunk, n = 2, 2, 8, 4, 8, 4
+    _, tcfg = _cfgs(n_layers=n_layers)
+    model = _model(n_layers)
+    bt = torch.tensor([[3, 7, 9, -1], [0, 5, -1, -1]], dtype=torch.int32)
+    caches = {"dense": T.init_caches(tcfg, paged=False, batch=b,
+                                     max_len=nb * page - 3),
+              "paged": T.init_caches(tcfg, paged=True, n_pages=10,
+                                     page_size=page),
+              "sparse": T.init_caches(tcfg, paged=True, n_pages=10,
+                                      page_size=page)}
+    rng = np.random.default_rng(7)
+    for step, (pos, nv) in enumerate(((0, 8), (0, 5), (8, 3))):
+        slot = step % 2
+        tok = np.zeros((b, chunk), np.int64)
+        tok[slot, :nv] = rng.integers(0, tcfg.vocab_size, nv)
+        active = torch.arange(b) == slot
+        kw = dict(pos=torch.tensor([pos, pos]), n=n, active=active,
+                  n_valid=torch.where(active, nv, 0).to(torch.int32),
+                  logits_mode="last")
+        out = {name: T.serve_step(model, torch.from_numpy(tok), c,
+                                  block_tables=None if name == "dense"
+                                  else bt, **kw)
+               for name, c in caches.items()}
+        assert torch.equal(out["dense"][slot], out["paged"][slot])
+    for pos in ((11, 5), (12, 6), (13, 7)):
+        tok = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (b, 1)))
+        kw = dict(pos=torch.tensor(pos), n=n, active=torch.ones(b, dtype=torch.bool),
+                  logits_mode="last")
+        dense = T.serve_step(model, tok, caches["dense"], **kw)
+        paged = T.serve_step(model, tok, caches["paged"], block_tables=bt,
+                             **kw)
+        sparse = T.serve_step(model, tok, caches["sparse"], block_tables=bt,
+                              page_topn=2, **kw)
+        assert torch.equal(dense, paged) and torch.equal(dense, sparse)
+
+
+@pytest.mark.parametrize("variant", ["plain", "prefix_cache", "preempt",
+                                     "dense", "prefix_cache_page_topn"])
 def test_ragged_equals_sequential_in_port(variant):
+    """Ragged batches equal one request at a time, bit for bit; warm
+    prefix-cached prompts equal cold ones (also under page-sparse
+    decode)."""
     _, tcfg = _cfgs()
     model = _model()
     kw = {"plain": {}, "prefix_cache": {"prefix_cache": True},
-          "preempt": {"n_pages": 7}}[variant]
+          "preempt": {"n_pages": 7}, "dense": {"paged": False},
+          "prefix_cache_page_topn": {"prefix_cache": True, "page_topn": 2},
+          }[variant]
     shared = _prompts((16,), seed=2)[0]
     prompts = [np.concatenate([shared, p])
                for p in _prompts((3, 9, 1, 12), seed=3)]
@@ -234,7 +365,9 @@ def test_ragged_equals_sequential_in_port(variant):
     if variant == "preempt":
         assert eng.stats["preemptions"] > 0
     for p, g in zip(prompts, got):
-        one = Engine(tcfg, model, _scfg(ServeConfig, 1), device="cpu")
+        one = Engine(tcfg, model, _scfg(ServeConfig, 1, **{
+            k: v for k, v in kw.items() if k in ("paged", "page_topn")}),
+            device="cpu")
         np.testing.assert_array_equal(g, _serve(one, [p], 6)[0])
 
 
@@ -309,8 +442,7 @@ def test_copied_scheduler_plans_equal_reference(kw, reclaims):
 # what this slice refuses, and how it picks the device
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(paged=False), dict(binary=False),
-                                dict(swap_pages=8), dict(page_topn=2),
+@pytest.mark.parametrize("kw", [dict(binary=False), dict(swap_pages=8),
                                 dict(mesh=object())])
 def test_unported_serving_features_raise(kw):
     _, tcfg = _cfgs()
@@ -326,6 +458,25 @@ def test_unported_layer_patterns_raise():
     eng = Engine(tcfg, _model(), _scfg(ServeConfig, 1), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.step_pipelined()
+
+
+@pytest.mark.parametrize("flags", [[], ["--paged"], ["--page-topn", "1"]],
+                         ids=["dense", "paged", "page_topn"])
+def test_launcher_cache_flags(flags, capsys):
+    """The dense cache is the default; --page-topn implies --paged and
+    reports its decode traffic. Dense and paged tokens agree."""
+    from repro_torch.launch import serve as launch
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--prompt-len",
+            "40", "--gen", "3", "--slots", "2", "--requests", "3"]
+    got = launch.main(argv + flags)
+    text = capsys.readouterr().out
+    assert ("kv pool:" in text) == bool(flags)
+    if flags == ["--page-topn", "1"]:
+        assert "top-1 page-sparse" in text
+    if flags == ["--paged"]:
+        dense = launch.main(argv)
+        assert {k: v.tolist() for k, v in got.items()} == \
+            {k: v.tolist() for k, v in dense.items()}
 
 
 def test_default_device_is_cuda_and_never_falls_back():
