@@ -20,7 +20,8 @@ runs four phases; any failure exits non-zero before the result line.
    the paged decode of the same tokens. Prints error, kernel and plain
    times (CUDA events), the bound (least time the card could take for the
    same work) and, where one PyTorch call computes the same function, its
-   time.
+   time. K2 is also timed at other split sizes (2, 4 and 8 tiles); K5's two
+   methods get a record each, int8 bounded at the int8 tensor-core rate.
 3. Cross-device: smollm-135m widths at 2 layers in float32, the same
    seeded weights on the CPU (plain versions) and on the card (kernels):
    first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
@@ -33,10 +34,11 @@ runs four phases; any failure exits non-zero before the result line.
    (top-N = 479), run four times: paged (16-token pages, 256-entry
    tables), dense cache, page-sparse with page_topn 255 (every resident
    page kept) and page_topn 64; then `ops.hamming_scores` at the phase-2
-   shapes, both methods. Launch counts are zeroed just before each run
-   and read just after; every kernel of a run's path must run 30 times a
-   step (a chunk for the prefill kernel, a decode step for the decode and
-   page-score kernels). The dense and page_topn-255 tokens must equal the
+   shapes, each method on its own. Launch counts are zeroed just before
+   each run and read just after; every kernel of a run's path must run 30
+   times a step (a chunk for the prefill kernel, a decode step for the
+   decode and page-score kernels; an op call counts once, whatever CUDA
+   launches it makes). The dense and page_topn-255 tokens must equal the
    paged run's; page_topn 64 must attend fewer pages.
 
 Then the kernel record line and, last, the result line.
@@ -59,6 +61,7 @@ HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12        # float32 outside the tensor cores
 INT8_TENSOR_OPS_PER_S = 1979e12
 TOL = dict(atol=1e-5, rtol=1e-4)
+K5_INT8 = "hamming_score_int8"     # K5's int8 method's own record
 CROSS_TOL = dict(atol=2e-3, rtol=2e-3)
 
 
@@ -222,12 +225,13 @@ def _dense_case(gen, lengths):
 
 
 def _record(mod, replaces, err, ms, plain_ms, work, library_ms=None,
-            ops_per_s=CUDA_CORE_OPS_PER_S) -> dict:
+            ops_per_s=CUDA_CORE_OPS_PER_S, name=None) -> dict:
     b_ms, b_by = bound(*work, ops_per_s=ops_per_s)
-    log(f"phase 2: {mod.NAME} {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+    name = name or mod.NAME
+    log(f"phase 2: {name} {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
         f"{b_ms:.5f} ms by {b_by}, library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'})")
-    return dict(name=mod.NAME, route="cuda",
+    return dict(name=name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{mod.NAME}.cu",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
@@ -290,9 +294,14 @@ def phase2() -> dict:
     q, k_pool, v_pool, bt, lens = _paged_case(gen, [3104, 1537, 600, 33])
     bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
     qf = q.reshape(B * HK, G, W).contiguous()
-    ms = cuda_ms(lambda: pdec.paged_decode_attention(
-        qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE),
-        iters=200)
+    ms = {}
+    for tiles in sorted({pdec.SPLIT_TILES, 2, 4, 8}):
+        ms[tiles] = cuda_ms(lambda: pdec.paged_decode_attention(
+            qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE,
+            split_tiles=tiles), iters=200)
+    log("phase 2: K2 ms by tiles per split: " + ", ".join(
+        f"{t} -> {v:.4f}" for t, v in ms.items()))
+    ms = ms[pdec.SPLIT_TILES]
     plain_ms = cuda_ms(lambda: ref.paged_decode_attention_rows_ref(
         qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE),
         iters=10, warmup=2)
@@ -384,9 +393,10 @@ def _phase2_k4(gen) -> dict:
 
 
 def _phase2_k5(gen) -> dict:
-    """K5 on q [3, 1536, 2] x k [3, 4096, 2], both methods exact; the
-    library yardstick is torch._int_mm on the unpacked +-1 int8 matrices
-    (unpack excluded), one call per batch entry (it takes 2-D operands)."""
+    """K5 on q [3, 1536, 2] x k [3, 4096, 2], both methods exact, a record
+    each; the library yardstick is torch._int_mm on the unpacked +-1 int8
+    matrices (unpack excluded), one call per batch entry (it takes 2-D
+    operands)."""
     import torch
     from repro_torch.core import hamming
     from repro_torch.kernels import hamming_score as hs
@@ -415,12 +425,12 @@ def _phase2_k5(gen) -> dict:
                        warmup=1)
     n_out = want.numel()
     work = ((qh.numel() + kh.numel()) * 4 + n_out * 4, n_out * (2 * W + 2))
-    int8_bound, _ = bound(work[0], n_out * 2 * D, INT8_TENSOR_OPS_PER_S)
-    log(f"phase 2: K5 int8 method {ms['int8']:.4f} ms against its own bound "
-        f"{int8_bound:.5f} ms")
-    return {hs.NAME: _record(
-        hs, "src/repro/kernels/hamming_score.py:64", 0.0, ms["xor"],
-        plain_ms, work, library_ms=library_ms)}
+    replaces = "src/repro/kernels/hamming_score.py:64"
+    return {hs.NAME: _record(hs, replaces, 0.0, ms["xor"], plain_ms, work,
+                             library_ms=library_ms),
+            K5_INT8: _record(hs, replaces, 0.0, ms["int8"], plain_ms,
+                             (work[0], n_out * 2 * D), library_ms=library_ms,
+                             ops_per_s=INT8_TENSOR_OPS_PER_S, name=K5_INT8)}
 
 
 # ---------------------------------------------------------------------------
@@ -612,19 +622,20 @@ def phase4():
                                        device="cuda"))
     kh = hamming.pack_bits(torch.randn((3, 4096, D), generator=gen_t,
                                        device="cuda"))
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    scores = [ops.hamming_scores(qh, kh, D, method=m) for m in hs.METHODS]
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    check(counts == {**{k: 0 for k in counts}, hs.NAME: len(hs.METHODS)},
-          counts)
+    scores = []
+    for method, key in (("xor", hs.NAME), ("int8", K5_INT8)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        scores.append(ops.hamming_scores(qh, kh, D, method=method))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == {**{k: 0 for k in counts}, hs.NAME: 1},
+              (method, counts))
+        log(f"phase 4 [hamming_scores {method}]: launches {counts}")
+        total[key] = total.get(key, 0) + counts[hs.NAME]
     check(scores[0].shape == (3, 1536, 4096)
           and torch.equal(scores[0], scores[1])
           and int(scores[0].abs().max()) <= D, "hamming_scores")
-    log(f"phase 4 [hamming_scores]: launches {counts}")
-    for k, v in counts.items():
-        total[k] += v
     return total, main_eng
 
 
@@ -671,8 +682,12 @@ def profile_windows(eng, out_dir: str) -> None:
         busy = sum(dev(e) for e in kernels)
         groups: dict[str, float] = {}
         for e in kernels:
+            # K2 is three CUDA launches: paged_decode_{scores,tiles,
+            # combine}_kernel
             key = ("K1 prefill_kernel" if "prefill_kernel" in e.key else
-                   "K2 paged_decode_kernel" if "paged_decode" in e.key else
+                   "K2 paged_decode_*_kernel" if any(
+                       f"paged_decode_{k}_kernel" in e.key
+                       for k in ("scores", "tiles", "combine")) else
                    "K3 page_score_kernel" if "page_score" in e.key else
                    "K4 decode_kernel" if "decode_kernel" in e.key else
                    "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key

@@ -5,20 +5,30 @@
 //           hamming_score (_hamming_score_kernel, _score_tile,
 //           _unpack_pm1_int8).
 //
-// One CTA per (batch, 64-query, 64-key) output tile; the query and key
-// words of the tile are staged in shared memory and each thread writes 16
-// outputs of one column, so a warp's stores are 32 consecutive ints. The
-// ragged edge is masked here: any M and N, nothing padded. Two methods, as
-// in the Pallas kernel, give the same integers:
-//   xor  -- XOR + __popc over the W words of a (query, key) pair;
-//   int8 -- the tile's bits unpacked to +-1 int8 in shared memory and
-//           accumulated four at a time with __dp4a into int32. Only the
-//           first d bits are unpacked; bits past d become 0 (a zero tail
-//           bit unpacked to -1 would add +1 per tail bit to every score).
+// Two methods, as in the Pallas kernel, give the same integers, and both
+// mask the ragged edge in the kernel: any M and N, nothing padded.
+//
+//   xor  -- one CTA per (batch, 64-query, 64-key) output tile; the tile's
+//           words are staged in shared memory and each thread writes 16
+//           outputs of one column from XOR + __popc over the W words.
+//   int8 -- the dot product of +-1 vectors on the int8 tensor cores, which
+//           is what the Pallas method does on the MXU. One CTA of 8 warps
+//           per (batch, 64-query, 128-key) tile. The tile's words are
+//           unpacked to +-1 int8 while they are loaded into shared memory
+//           (rows of K = 32 * ceil(d / 32) bytes, pitched 16 bytes longer so
+//           the fragment loads hit 32 distinct banks); bits past d become 0
+//           in BOTH operands, so the padded tail adds nothing. Each warp
+//           holds a 32 x 32 accumulator of mma.sync m16n8k32 s8 x s8 -> s32
+//           over K / 32 steps. The epilogue stages the int32 tile in shared
+//           memory (reusing the operand space) and writes each output row
+//           with 16-byte stores, 512 contiguous bytes per warp, or with
+//           4-byte stores when N % 4 breaks the 16-byte alignment.
 //
 // What bounds it on an H100: bytes -- the [M, N] int32 output is 4 bytes
-// per pair against W*4 bytes per query or key row read once, and the
-// integer work per pair is a few operations (xor) or d/4 dp4a (int8).
+// per pair against W*4 bytes per query or key row read once; the integer
+// work per pair is a few operations (xor) or 2 * K int8 tensor-core
+// operations (int8, 1979 TOP/s), far below the byte time either way. The
+// int8 epilogue is built to stream the output at the memory rate.
 #include "had_common.cuh"
 
 namespace {
@@ -27,30 +37,158 @@ constexpr int kThreads = 256;
 constexpr int kBM = 64;  // queries per tile
 constexpr int kBN = 64;  // keys per tile
 constexpr int kRowsPerPass = kThreads / kBN;
-// int8 rows: 8 ints (32 int8) per packed word, +1 int so lanes reading
-// different key rows hit different banks
-constexpr int kPitch8 = 8 * had::kMaxWords + 1;
 
-__device__ __forceinline__ int unpack4(uint32_t word, int b0, int d) {
-  // int8 lanes of the four bits b0..b0+3 of `word` (b0 a multiple of 4):
-  // +1 for a set bit, -1 for a clear one, 0 past d
-  int packed = 0;
+// int8 method: 8 warps as 2 (queries) x 4 (keys), each on a 32 x 32 block
+constexpr int kMmaThreads = 256;
+constexpr int kMmaBM = 64;             // queries per tile
+constexpr int kMmaBN = 128;            // keys per tile
+constexpr int kOutPitch = kMmaBN + 8;  // int32 staging row: conflict-free
+                                       // 8-byte fragment stores
+
+// The four bits of `nib` as int8 lanes (bit u -> byte u): +1 for a set
+// bit, -1 for a clear one.
+__device__ __forceinline__ uint32_t pm1_bytes(uint32_t nib) {
+  const uint32_t x = (nib * 0x00204081u) & 0x01010101u;  // bit u -> byte u
+  return x | ((x ^ 0x01010101u) * 0xffu);  // 0 -> 0xff; no carries
+}
+
+// Unpacks rows [r0, r0 + rows) of src ([n_rows, W] words) into `rows` int8
+// rows of `pitch` bytes: the first Kw words, +-1 per bit below d, 0 for bits
+// past d and for rows past n_rows.
+__device__ __forceinline__ void unpack_rows(const uint32_t* __restrict__ src,
+                                            int r0, int n_rows, int rows,
+                                            int W, int Kw, int d,
+                                            int8_t* dst, int pitch) {
+  for (int x = threadIdx.x; x < rows * Kw; x += kMmaThreads) {
+    const int r = x / Kw;
+    const int w = x - r * Kw;
+    const bool ok = r0 + r < n_rows;
+    const uint32_t word = ok ? src[(size_t)(r0 + r) * W + w] : 0u;
+    const int nv = ok ? min(max(d - 32 * w, 0), 32) : 0;  // bits below d
+    uint32_t b[8];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int b = b0 + u;
-    const int val = b < d ? (((word >> (b & 31)) & 1u) ? 1 : -1) : 0;
-    packed |= (val & 0xff) << (8 * u);
+    for (int c = 0; c < 8; ++c) {
+      const int vc = min(max(nv - 4 * c, 0), 4);
+      const uint32_t keep = vc == 4 ? 0xffffffffu : (1u << (8 * vc)) - 1u;
+      b[c] = pm1_bytes((word >> (4 * c)) & 0xfu) & keep;
+    }
+    uint4* p = reinterpret_cast<uint4*>(dst + (size_t)r * pitch + 32 * w);
+    p[0] = make_uint4(b[0], b[1], b[2], b[3]);
+    p[1] = make_uint4(b[4], b[5], b[6], b[7]);
   }
-  return packed;
+}
+
+// c[16 x 8] += a[16 x 32] * b[32 x 8], int8 in, int32 accumulators.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Bytes of dynamic shared memory the int8 kernel needs: the two unpacked
+// operand tiles, or the int32 output tile that later reuses them.
+inline size_t int8_smem_bytes(int d) {
+  const size_t pitch = 32 * (size_t)((d + 31) / 32) + 16;
+  const size_t operands = (kMmaBM + kMmaBN) * pitch;
+  const size_t staging = sizeof(int) * kMmaBM * kOutPitch;
+  return operands > staging ? operands : staging;
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+hamming_int8_kernel(const uint32_t* __restrict__ q,  // [Bt, M, W]
+                    const uint32_t* __restrict__ k,  // [Bt, N, W]
+                    int* __restrict__ out,           // [Bt, M, N]
+                    int M, int N, int W, int d) {
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int Kw = (d + 31) / 32;       // words that hold the first d bits
+  const int K = 32 * Kw;              // d zero-padded to the mma depth
+  const int pitch = K + 16;           // bytes; pitch / 4 is 4 mod 8 words
+  int8_t* as = reinterpret_cast<int8_t*>(smem8);  // [kMmaBM, pitch]
+  int8_t* bs = as + kMmaBM * pitch;               // [kMmaBN, pitch]
+  int* cs = reinterpret_cast<int*>(smem8);        // [kMmaBM, kOutPitch]
+  const int bt = blockIdx.z;
+  const int m0 = blockIdx.y * kMmaBM;
+  const int n0 = blockIdx.x * kMmaBN;
+  unpack_rows(q + (size_t)bt * M * W, m0, M, kMmaBM, W, Kw, d, as, pitch);
+  unpack_rows(k + (size_t)bt * N * W, n0, N, kMmaBN, W, Kw, d, bs, pitch);
+  __syncthreads();
+
+  // mma fragments (PTX m16n8k32 .s8): lane = 4 * gq + tq; A rows gq and
+  // gq + 8, bytes 4tq..4tq+3 and 16+4tq..; B column gq, the same bytes;
+  // C rows gq and gq + 8, columns 2tq and 2tq + 1
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * 32;
+  const int wn = (warp % 4) * 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  int acc[2][4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int8_t* ap = as + (wm + mi * 16 + gq) * pitch + k0 + 4 * tq;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * pitch);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 16);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * pitch + 16);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int8_t* bp = bs + (wn + ni * 8 + gq) * pitch + k0 + 4 * tq;
+      b[ni][0] = *reinterpret_cast<const uint32_t*>(bp);
+      b[ni][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+  }
+  __syncthreads();  // every warp is done with as/bs: cs overwrites them
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      int* cp = cs + (wm + mi * 16 + gq) * kOutPitch + wn + ni * 8 + 2 * tq;
+      *reinterpret_cast<int2*>(cp) =
+          make_int2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<int2*>(cp + 8 * kOutPitch) =
+          make_int2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  __syncthreads();
+
+  // a warp writes one 128-int row: 32 lanes x 16 bytes, contiguous
+  int* ob = out + ((size_t)bt * M + m0) * N + n0;
+  const bool vec = (N & 3) == 0;  // row starts 16-byte aligned
+  constexpr int kQuads = kMmaBN / 4;
+  for (int x = threadIdx.x; x < kMmaBM * kQuads; x += kMmaThreads) {
+    const int r = x / kQuads;
+    const int c = 4 * (x - r * kQuads);
+    if (m0 + r >= M) break;  // rows only grow with x
+    const int4 v = *reinterpret_cast<const int4*>(cs + r * kOutPitch + c);
+    int* op = ob + (size_t)r * N + c;
+    if (vec) {
+      if (n0 + c < N) *reinterpret_cast<int4*>(op) = v;
+    } else {
+      if (n0 + c < N) op[0] = v.x;
+      if (n0 + c + 1 < N) op[1] = v.y;
+      if (n0 + c + 2 < N) op[2] = v.z;
+      if (n0 + c + 3 < N) op[3] = v.w;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-hamming_score_kernel(const uint32_t* __restrict__ q,  // [Bt, M, W]
-                     const uint32_t* __restrict__ k,  // [Bt, N, W]
-                     int* __restrict__ out,           // [Bt, M, N]
-                     int M, int N, int W, int d, int int8) {
-  __shared__ int qs[kBM * kPitch8];
-  __shared__ int ks[kBN * kPitch8];
+hamming_xor_kernel(const uint32_t* __restrict__ q,  // [Bt, M, W]
+                   const uint32_t* __restrict__ k,  // [Bt, N, W]
+                   int* __restrict__ out,           // [Bt, M, N]
+                   int M, int N, int W, int d) {
+  __shared__ uint32_t qw[kBM * (had::kMaxWords | 1)];
+  __shared__ uint32_t kw[kBN * (had::kMaxWords | 1)];
   const int tid = threadIdx.x;
   const int bt = blockIdx.z;
   const int m0 = blockIdx.y * kBM;
@@ -62,48 +200,21 @@ hamming_score_kernel(const uint32_t* __restrict__ q,  // [Bt, M, W]
   int* ob = out + ((size_t)bt * M + m0) * N + n0;
   const bool col_ok = n0 + c < N;
 
-  if (!int8) {
-    // word pitch W | 1 (odd for W > 1): lanes of a warp read distinct banks
-    const int pitch = W | 1;
-    uint32_t* qw = reinterpret_cast<uint32_t*>(qs);
-    uint32_t* kw = reinterpret_cast<uint32_t*>(ks);
-    for (int x = tid; x < kBM * W; x += kThreads) {
-      const int r = x / W;
-      qw[r * pitch + x % W] = m0 + r < M ? qb[x] : 0u;
-    }
-    for (int x = tid; x < kBN * W; x += kThreads) {
-      const int r = x / W;
-      kw[r * pitch + x % W] = n0 + r < N ? kb[x] : 0u;
-    }
-    __syncthreads();
-    for (int r = r0; r < kBM; r += kRowsPerPass) {
-      if (m0 + r < M && col_ok)
-        ob[(size_t)r * N + c] = had::score(qw + r * pitch, kw + c * pitch, 1,
-                                           W, d);
-    }
-    return;
+  // word pitch W | 1 (odd for W > 1): lanes of a warp read distinct banks
+  const int pitch = W | 1;
+  for (int x = tid; x < kBM * W; x += kThreads) {
+    const int r = x / W;
+    qw[r * pitch + x % W] = m0 + r < M ? qb[x] : 0u;
   }
-
-  const int n4 = (d + 3) / 4;  // int8 quads that hold the first d bits
-  for (int x = tid; x < kBM * n4; x += kThreads) {
-    const int r = x / n4;
-    const int c4 = x - r * n4;
-    const uint32_t word = m0 + r < M ? qb[r * W + c4 / 8] : 0u;
-    qs[r * kPitch8 + c4] = m0 + r < M ? unpack4(word, 4 * c4, d) : 0;
-  }
-  for (int x = tid; x < kBN * n4; x += kThreads) {
-    const int r = x / n4;
-    const int c4 = x - r * n4;
-    const uint32_t word = n0 + r < N ? kb[r * W + c4 / 8] : 0u;
-    ks[r * kPitch8 + c4] = n0 + r < N ? unpack4(word, 4 * c4, d) : 0;
+  for (int x = tid; x < kBN * W; x += kThreads) {
+    const int r = x / W;
+    kw[r * pitch + x % W] = n0 + r < N ? kb[x] : 0u;
   }
   __syncthreads();
-  const int* kr = ks + c * kPitch8;
   for (int r = r0; r < kBM; r += kRowsPerPass) {
-    const int* qr = qs + r * kPitch8;
-    int acc = 0;
-    for (int c4 = 0; c4 < n4; ++c4) acc = __dp4a(qr[c4], kr[c4], acc);
-    if (m0 + r < M && col_ok) ob[(size_t)r * N + c] = acc;
+    if (m0 + r < M && col_ok)
+      ob[(size_t)r * N + c] = had::score(qw + r * pitch, kw + c * pitch, 1,
+                                         W, d);
   }
 }
 
@@ -116,10 +227,24 @@ extern "C" int had_hamming_score(const void* q, const void* k, void* out,
       (M + kBM - 1) / kBM > 65535)
     return (int)cudaErrorInvalidValue;
   if (Bt == 0 || M == 0 || N == 0) return (int)cudaSuccess;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, Bt);
-  hamming_score_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
-      static_cast<int*>(out), M, N, W, d, int8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qw = static_cast<const uint32_t*>(q);
+  const auto* kw = static_cast<const uint32_t*>(k);
+  int* o = static_cast<int*>(out);
+  if (int8) {
+    const size_t smem = int8_smem_bytes(d);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          hamming_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM, Bt);
+    hamming_int8_kernel<<<grid, kMmaThreads, smem, s>>>(qw, kw, o, M, N, W,
+                                                        d);
+  } else {
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, Bt);
+    hamming_xor_kernel<<<grid, kThreads, 0, s>>>(qw, kw, o, M, N, W, d);
+  }
   return (int)cudaGetLastError();
 }

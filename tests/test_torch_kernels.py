@@ -229,6 +229,34 @@ def test_out_of_range_table_entries_count_as_zero():
                                             zeroed, **kw))
 
 
+@pytest.mark.parametrize("nb,page", [(256, 16), (255, 16), (64, 16),
+                                     (34, 48), (3, 1)])
+def test_split_plan_depends_on_shapes_only(nb, page):
+    """K2's grid and scratch come from tensor shapes: rows with different
+    lengths (so different counts) give the same plan, and the splits cut
+    the row's 64-position tiles into runs of SPLIT_TILES."""
+    b, h, hk, d, dv = 2, 6, 2, 64, 16
+    plans = []
+    for lengths in ([nb * page, 1], [0, nb * page // 2]):
+        qb, k_pool, _, bt, lens = _paged_inputs(
+            b, h, hk, nb, page, d, dv, b * nb, lengths, seed=nb, holes=False)
+        tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
+                                            torch.from_numpy(lens), hk, page)
+        q = _t(qb).reshape(b * hk, h // hk, -1)
+        plans.append(pdec.split_plan(q.shape, tables.shape, dv, d, page))
+    assert plans[0] == plans[1]
+    plan = plans[0]
+    r, g, t = b * hk, h // hk, ref.TILE_KEYS
+    assert plan.n_tiles == -(-nb * page // t)
+    assert (plan.n_splits - 1) * pdec.SPLIT_TILES < plan.n_tiles \
+        <= plan.n_splits * pdec.SPLIT_TILES
+    assert plan.scratch_words == r * (plan.n_splits * g * (d + 1)
+                                      + plan.n_tiles + 1
+                                      + plan.n_tiles * (g * dv + g))
+    assert pdec.split_plan((r, g, 2), (r, nb), dv, d, page,
+                           split_tiles=4).n_splits == -(-plan.n_tiles // 4)
+
+
 # ---------------------------------------------------------------------------
 # K3: page scores, and page-sparse decode through select_pages
 # ---------------------------------------------------------------------------
@@ -537,6 +565,77 @@ def test_paged_sparse_cuda_matches_plain(cuda, page_topn):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
 
 
+def _split_case(name, split):
+    """Row tables and counts that put the split K2's edges to work, with
+    split = its positions per split: lengths split-1, split and split+1; a
+    row with one valid key next to an all-idle row; a row whose only valid
+    keys lie in its last split (earlier blocks count 0) beside an all-idle
+    row."""
+    b, h, hk, page, d, dv = 3, 6, 2, 16, 64, 64
+    nb = 3 * split // page
+    lengths = {"split_edges": [split - 1, split, split + 1],
+               "one_key_and_idle": [1, 0, 2 * split],
+               "last_split_only": [3 * split, 0, 3 * split - 5]}[name]
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, b * nb + 3, lengths, seed=len(name))
+    tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
+                                        torch.from_numpy(lens), hk, page)
+    if name == "last_split_only":
+        counts[:, : 2 * split // page] = 0
+    q = _t(qb).reshape(b * hk, h // hk, -1)
+    return q, _t(k_pool), torch.from_numpy(v_pool), tables, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_tiles", [4, 8])
+@pytest.mark.parametrize("name", ["split_edges", "one_key_and_idle",
+                                  "last_split_only"])
+def test_split_paged_decode_cuda_matches_plain(cuda, name, split_tiles):
+    """The split K2 against its plain version at the edges of its splits;
+    another split size gives the same bits; idle rows are exactly 0."""
+    q, k_pool, v_pool, tables, counts = _split_case(
+        name, split_tiles * ref.TILE_KEYS)
+    v_pool = v_pool.to(torch.bfloat16)
+    kw = dict(d=64, nsel=100, scale=0.125)
+    want = ref.paged_decode_attention_rows_ref(q, k_pool, v_pool, tables,
+                                               counts, **kw)
+    args = [x.to(cuda) for x in (q, k_pool, v_pool, tables, counts)]
+    before = pdec.launches
+    got = pdec.paged_decode_attention(*args, split_tiles=split_tiles, **kw)
+    other = pdec.paged_decode_attention(
+        *args, split_tiles={4: 8, 8: 4}[split_tiles], **kw)
+    torch.cuda.synchronize()
+    assert pdec.launches == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+    assert torch.equal(got, other)
+    idle = (counts.sum(1) == 0).to(cuda)
+    assert bool(idle.any()) == (name != "split_edges")
+    assert (got[idle] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_topn", [1, 3])
+def test_split_paged_decode_compacted_cuda_matches_plain(cuda, page_topn):
+    """The split K2 on tables compacted by page-sparse selection (nb =
+    page_topn) from rows of several splits."""
+    b, h, hk, nb, page, d, dv = 3, 6, 2, 100, 16, 64, 64
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, b * nb + 3, [1500, 700, 9],
+        seed=page_topn)
+    args = [_t(qb), _t(k_pool), torch.from_numpy(v_pool).to(torch.bfloat16),
+            torch.from_numpy(bt)]
+    kw = dict(d=d, nsel=60, scale=0.125, page_topn=page_topn)
+    want = ops.paged_decode_attention(*args, lengths=torch.from_numpy(lens),
+                                      **kw)
+    before = pdec.launches
+    got = ops.paged_decode_attention(*[a.to(cuda) for a in args],
+                                     lengths=torch.from_numpy(lens).to(cuda),
+                                     **kw)
+    torch.cuda.synchronize()
+    assert pdec.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+
 CUDA_DECODE_CASES = dict(DECODE_CASES, long_d128_dv128=(
     1, 4, 1, 24000, 128, 128, 500, [23900]))
 
@@ -592,6 +691,23 @@ def test_hamming_scores_cuda_exact(cuda, d, method):
     want = ops.hamming_scores(qb, kb, d, method=method)
     before = hs.launches
     got = ops.hamming_scores(qb.to(cuda), kb.to(cuda), d, method=method)
+    torch.cuda.synchronize()
+    assert hs.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 70, 130), (3, 129, 260), (1, 1, 1)])
+@pytest.mark.parametrize("d", [16, 48, 64, 128, 256])
+def test_hamming_int8_cuda_exact(cuda, d, shape):
+    """The int8 tensor-core method equals the plain version exactly: d from
+    one mma step (16, padded to 32) to eight (256), and M, N off the
+    64 x 128 tile (N % 4 != 0 takes the 4-byte stores, 260 the 16-byte)."""
+    bt, m, n = shape
+    qb, kb = _t(_bits((bt, m, d), d)), _t(_bits((bt, n, d), d + 1))
+    want = ref.hamming_score_ref(qb, kb, d)
+    before = hs.launches
+    got = hs.hamming_score(qb.to(cuda), kb.to(cuda), d, method="int8")
     torch.cuda.synchronize()
     assert hs.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
