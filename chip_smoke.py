@@ -20,8 +20,13 @@ runs four phases; any failure exits non-zero before the result line.
    the paged decode of the same tokens. Prints error, kernel and plain
    times (CUDA events), the bound (least time the card could take for the
    same work) and, where one PyTorch call computes the same function, its
-   time. K2 is also timed at other split sizes (2, 4 and 8 tiles); K5's two
-   methods get a record each, int8 bounded at the int8 tensor-core rate.
+   time, and the host time of one call (the wrapper's enqueue on an idle
+   stream). K1 is also timed at 4- and 8-tile splits, K2 and K4 at 2, 4
+   and 8 (K4 must give the same bits at 1, 2, 4 and 8); K5's two methods
+   get a record each. Each bound prices a kind of operation at its own
+   peak: integer and float32 work on the CUDA cores, K1's E.V (three bf16
+   products a multiply-add) at the bf16 tensor-core rate, K5 int8 at the
+   int8 tensor-core rate.
 3. Cross-device: smollm-135m widths at 2 layers in float32, the same
    seeded weights on the CPU (plain versions) and on the card (kernels):
    first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
@@ -41,11 +46,14 @@ runs four phases; any failure exits non-zero before the result line.
    launches it makes). The dense and page_topn-255 tokens must equal the
    paged run's; page_topn 64 must attend fewer pages.
 
-Then the kernel record line and, last, the result line.
+`--profile DIR` then profiles the prefill of one 3072-token prompt and a
+decode window of the paged and of the dense engine. Then the kernel record
+line and, last, the result line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -59,6 +67,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12        # float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 TOL = dict(atol=1e-5, rtol=1e-4)
 K5_INT8 = "hamming_score_int8"     # K5's int8 method's own record
@@ -89,11 +98,37 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, nops: float,
-          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
+def host_us(fn, calls: int = 20) -> float:
+    """Host time of one call in microseconds: `calls` calls enqueued on an
+    idle stream, few enough that none waits for the device."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def bound(nbytes: float, ops) -> tuple[float, str]:
+    """Least time (ms) for `nbytes` of memory traffic and `ops`, pairs of
+    (operations, peak rate of the unit that does them): the larger of the
+    bytes' time and the slowest unit's time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
+    t_ops = max(n / rate * 1e3 for n, rate in ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def split_tiles(mod, tiles: int):
+    """Launches of `mod`'s kernel (and of every kernel that reads its
+    SPLIT_TILES) split the key axis into runs of `tiles` tiles."""
+    old, mod.SPLIT_TILES = mod.SPLIT_TILES, tiles
+    try:
+        yield
+    finally:
+        mod.SPLIT_TILES = old
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +188,10 @@ def _prefill_case(gen, lens):
 
 
 def _prefill_work(q, k, kvl, qoff, qlen):
-    """(bytes, ops) the prefill function needs for these inputs."""
+    """(bytes, ops) the prefill function needs for these inputs: the
+    scores of the valid pairs on the CUDA cores, E.V of the kept pairs and
+    their sum(E) (a column of ones) on the bf16 tensor cores, three bf16
+    products a multiply-add (E as e0 + e1 + e2)."""
     import torch
     from repro_torch.core import hamming, topn
     kb = torch.repeat_interleave(k, G, dim=0)
@@ -168,8 +206,8 @@ def _prefill_work(q, k, kvl, qoff, qlen):
     n_valid, n_kept = valid.sum().item(), keep.sum().item()
     nbytes = (qlen.sum().item() * W * 4 + kv_keys * W * 4 + v_keys * DV * 2
               + B * H * CHUNK * DV * 4 + 3 * B * H * 4)
-    nops = n_kept * (2 * DV + 1) + n_valid * (2 * W + 2)
-    return nbytes, nops
+    return nbytes, [(n_valid * (2 * W + 2), CUDA_CORE_OPS_PER_S),
+                    (3 * n_kept * 2 * (DV + 1), BF16_TENSOR_OPS_PER_S)]
 
 
 def _paged_case(gen, lengths):
@@ -204,7 +242,7 @@ def _decode_work(q, k_rows, lens, index_bytes):
     nbytes = (B * H * W * 4 + n_keys * W * 4 + v_keys * DV * 2
               + index_bytes + B * H * DV * 4)
     nops = keep.sum().item() * (2 * DV + 1) + n_keys * G * (2 * W + 2)
-    return nbytes, nops
+    return nbytes, [(nops, CUDA_CORE_OPS_PER_S)]
 
 
 def _paged_work(q, k_pool, bt, lens):
@@ -224,13 +262,16 @@ def _dense_case(gen, lengths):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
-def _record(mod, replaces, err, ms, plain_ms, work, library_ms=None,
-            ops_per_s=CUDA_CORE_OPS_PER_S, name=None) -> dict:
-    b_ms, b_by = bound(*work, ops_per_s=ops_per_s)
+def _record(mod, replaces, err, ms, plain_ms, work, host, library_ms=None,
+            name=None) -> dict:
+    """work: (bytes, [(operations, peak rate), ...]); host: host
+    microseconds a call."""
+    b_ms, b_by = bound(*work)
     name = name or mod.NAME
     log(f"phase 2: {name} {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
         f"{b_ms:.5f} ms by {b_by}, library "
-        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'})")
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
+        f"host {host:.1f} us a call)")
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{mod.NAME}.cu",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -266,14 +307,24 @@ def phase2() -> dict:
         if name == "main":
             timed = (q, k, v, kw)
     q, k, v, kw = timed
-    ms = cuda_ms(lambda: pre.prefill_attention(
-        q, k, v, group_size=G, n_kv_heads=HK, **kw), iters=50)
+    want = ref.prefill_attention_ref(q, k, v, group_size=G, **kw)
+    def k1():
+        return pre.prefill_attention(q, k, v, group_size=G, n_kv_heads=HK,
+                                     **kw)
+    ms = {}
+    for tiles in sorted({pre.SPLIT_TILES, 4, 8}):
+        with split_tiles(pre, tiles):
+            torch.testing.assert_close(k1(), want, **TOL)
+            ms[tiles] = cuda_ms(k1, iters=50)
+    log("phase 2: K1 ms by tiles per split: " + ", ".join(
+        f"{t} -> {v:.4f}" for t, v in ms.items()))
+    ms = ms[pre.SPLIT_TILES]
     plain_ms = cuda_ms(lambda: ref.prefill_attention_ref(
         q, k, v, group_size=G, **kw), iters=3, warmup=1)
     records[pre.NAME] = _record(
         pre, "src/repro/kernels/binary_prefill_attention.py:106", err, ms,
         plain_ms, _prefill_work(q, k, kw["kv_length"], kw["q_offset"],
-                                kw["q_length"]))
+                                kw["q_length"]), host_us(k1))
 
     # K2: 4 decoding slots, ragged lengths, shuffled pages, -1 past each
     # row's pages (count-0 blocks)
@@ -294,11 +345,14 @@ def phase2() -> dict:
     q, k_pool, v_pool, bt, lens = _paged_case(gen, [3104, 1537, 600, 33])
     bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
     qf = q.reshape(B * HK, G, W).contiguous()
+    def k2():
+        return pdec.paged_decode_attention(qf, k_pool, v_pool, bt_rows,
+                                           counts, d=D, nsel=NSEL,
+                                           scale=SCALE)
     ms = {}
     for tiles in sorted({pdec.SPLIT_TILES, 2, 4, 8}):
-        ms[tiles] = cuda_ms(lambda: pdec.paged_decode_attention(
-            qf, k_pool, v_pool, bt_rows, counts, d=D, nsel=NSEL, scale=SCALE,
-            split_tiles=tiles), iters=200)
+        with split_tiles(pdec, tiles):
+            ms[tiles] = cuda_ms(k2, iters=200)
     log("phase 2: K2 ms by tiles per split: " + ", ".join(
         f"{t} -> {v:.4f}" for t, v in ms.items()))
     ms = ms[pdec.SPLIT_TILES]
@@ -307,7 +361,7 @@ def phase2() -> dict:
         iters=10, warmup=2)
     records[pdec.NAME] = _record(
         pdec, "src/repro/kernels/binary_paged_decode_attention.py:109", err,
-        ms, plain_ms, _paged_work(q, k_pool, bt, lens))
+        ms, plain_ms, _paged_work(q, k_pool, bt, lens), host_us(k2))
     records.update(_phase2_k3(gen))
     records.update(_phase2_k4(gen))
     records.update(_phase2_k5(gen))
@@ -333,24 +387,27 @@ def _phase2_k3(gen) -> dict:
     q, k_pool, _, bt, lens = _paged_case(gen, [3104, 1537, 600, 33])
     bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
     qf = q.reshape(B * HK, G, W).contiguous()
-    ms = cuda_ms(lambda: pscore.paged_page_scores(qf, k_pool, bt_rows,
-                                                  counts, d=D), iters=200)
+    def k3():
+        return pscore.paged_page_scores(qf, k_pool, bt_rows, counts, d=D)
+    ms = cuda_ms(k3, iters=200)
     plain_ms = cuda_ms(lambda: ref.paged_page_scores_ref(
         qf, k_pool, bt_rows, counts, d=D), iters=10, warmup=2)
     r = B * HK
     n_keys = lens.sum().item() * HK
     work = (r * G * W * 4 + n_keys * W * 4 + 3 * r * NB * 4,
-            n_keys * W * 2 + r * NB * G * W * 6)
+            [(n_keys * W * 2 + r * NB * G * W * 6, CUDA_CORE_OPS_PER_S)])
     return {pscore.NAME: _record(
         pscore, "src/repro/kernels/binary_page_score.py:68", 0.0, ms,
-        plain_ms, work)}
+        plain_ms, work, host_us(k3))}
 
 
 def _phase2_k4(gen) -> dict:
     """K4 over a dense cache; the same tokens laid out as in-order pages
-    through K2 must give the same bits."""
+    through K2 must give the same bits, as must every split size (K4 reads
+    K2's SPLIT_TILES)."""
     import torch
     from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
     from repro_torch.kernels import ops, ref
     kw = dict(d=D, nsel=NSEL, scale=SCALE)
     err = 0.0
@@ -369,19 +426,34 @@ def _phase2_k4(gen) -> dict:
                           device="cuda").reshape(B, NB)
         paged = ops.paged_decode_attention(q, k_pool, v_pool, bt,
                                            lengths=lens, **kw)
+        splits = []
+        for tiles in (1, 2, 8):
+            with split_tiles(pdec, tiles):
+                splits.append(dec.decode_attention(qf, k, v, len_f, **kw))
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL)
         check(torch.equal(got.reshape(B, H, DV), paged),
               f"dense-cache decode != paged decode of the same tokens "
               f"{lengths}")
+        check(all(torch.equal(got, x) for x in splits),
+              f"K4 differs between split sizes {lengths}")
         err = max(err, (got - want).abs().max().item())
         log(f"phase 2: K4 dense decode lengths {lengths} max_abs_err "
-            f"{(got - want).abs().max().item():.3e}, == K2 bit for bit")
+            f"{(got - want).abs().max().item():.3e}, == K2 bit for bit, "
+            f"the same bits at 1/2/4/8 tiles a split")
     q, k, v, lens = _dense_case(gen, [3104, 1537, 600, 33])
     qf = q.reshape(B * HK, G, W).contiguous()
     len_f = lens.repeat_interleave(HK)
-    ms = cuda_ms(lambda: dec.decode_attention(qf, k, v, len_f, **kw),
-                 iters=200)
+
+    def k4():
+        return dec.decode_attention(qf, k, v, len_f, **kw)
+    ms = {}
+    for tiles in sorted({pdec.SPLIT_TILES, 2, 4, 8}):
+        with split_tiles(pdec, tiles):
+            ms[tiles] = cuda_ms(k4, iters=200)
+    log("phase 2: K4 ms by tiles per split: " + ", ".join(
+        f"{t} -> {v:.4f}" for t, v in ms.items()))
+    ms = ms[pdec.SPLIT_TILES]
     plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
         qf, k.transpose(-1, -2), v, lengths=len_f, **kw), iters=10,
         warmup=2)
@@ -389,7 +461,7 @@ def _phase2_k4(gen) -> dict:
                         lens, B * HK * 4)
     return {dec.NAME: _record(
         dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
-        plain_ms, work)}
+        plain_ms, work, host_us(k4))}
 
 
 def _phase2_k5(gen) -> dict:
@@ -424,13 +496,18 @@ def _phase2_k5(gen) -> dict:
     plain_ms = cuda_ms(lambda: ref.hamming_score_ref(qh, kh, D), iters=3,
                        warmup=1)
     n_out = want.numel()
-    work = ((qh.numel() + kh.numel()) * 4 + n_out * 4, n_out * (2 * W + 2))
+    nbytes = (qh.numel() + kh.numel()) * 4 + n_out * 4
     replaces = "src/repro/kernels/hamming_score.py:64"
-    return {hs.NAME: _record(hs, replaces, 0.0, ms["xor"], plain_ms, work,
-                             library_ms=library_ms),
-            K5_INT8: _record(hs, replaces, 0.0, ms["int8"], plain_ms,
-                             (work[0], n_out * 2 * D), library_ms=library_ms,
-                             ops_per_s=INT8_TENSOR_OPS_PER_S, name=K5_INT8)}
+    host = {m: host_us(lambda: hs.hamming_score(qh, kh, D, method=m))
+            for m in hs.METHODS}
+    return {hs.NAME: _record(
+                hs, replaces, 0.0, ms["xor"], plain_ms,
+                (nbytes, [(n_out * (2 * W + 2), CUDA_CORE_OPS_PER_S)]),
+                host["xor"], library_ms=library_ms),
+            K5_INT8: _record(
+                hs, replaces, 0.0, ms["int8"], plain_ms,
+                (nbytes, [(n_out * 2 * D, INT8_TENSOR_OPS_PER_S)]),
+                host["int8"], library_ms=library_ms, name=K5_INT8)}
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +648,7 @@ def phase4():
                                (pdec, pscore)),
              "page_topn_64": (dict(paged=True, page_topn=64),
                               (pdec, pscore))}
-    runs, total, main_eng = {}, {}, None
+    runs, total, engines = {}, {}, {}
     for name, (kw, decoders) in paths.items():
         eng = _engine(cfg, model, dict(base, **kw), "cuda",
                       telemetry=Telemetry())
@@ -599,8 +676,8 @@ def phase4():
             f"{np.percentile(r['itl'], 95):.2f} ms, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         runs[name] = r
-        if name == "paged":
-            main_eng = eng
+        if name in ("paged", "dense"):
+            engines[name] = eng
     for name in ("dense", "page_topn_255"):
         same = all(np.array_equal(a, b) for a, b in
                    zip(runs[name]["tokens"], runs["paged"]["tokens"]))
@@ -636,17 +713,19 @@ def phase4():
     check(scores[0].shape == (3, 1536, 4096)
           and torch.equal(scores[0], scores[1])
           and int(scores[0].abs().max()) <= D, "hamming_scores")
-    return total, main_eng
+    return total, engines
 
 
-def profile_windows(eng, out_dir: str) -> None:
-    """Device time by kernel in two windows of the full-size engine, each
-    run twice -- once timed on the host clock, once under torch.profiler:
-    the prefill of one 3072-token prompt into the idle engine (6 chunks in
-    one step: the budget lifts when no slot decodes), and 8 decode steps
-    of 4 slots at ~3.1k-token contexts. Busy share = device kernel time
-    under the profiler / host wall of the unprofiled twin. Writes each
-    window's op table to `out_dir`."""
+def profile_windows(engines: dict, out_dir: str) -> None:
+    """Device time by kernel in windows of the full-size engines, each run
+    four times -- three timed on the host clock, then once under
+    torch.profiler: the prefill of one 3072-token prompt into the idle
+    paged engine (6 chunks in one step: the budget lifts when no slot
+    decodes), then 8 decode steps of 4 slots at ~3.1k-token contexts on the
+    paged engine (K2) and on the dense-cache engine (K4). Busy share =
+    device kernel time under the profiler / the median host wall of the
+    unprofiled runs; the caching allocator's cudaMalloc calls in those
+    runs are counted. Writes each window's op table to `out_dir`."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -657,7 +736,7 @@ def profile_windows(eng, out_dir: str) -> None:
     def prompt():
         return rng.integers(0, eng.cfg.vocab_size, 3072).astype(np.int32)
 
-    def steps(n):
+    def steps(eng, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
@@ -665,13 +744,20 @@ def profile_windows(eng, out_dir: str) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    def window(name, n, setup):
-        setup()
-        wall = steps(n)
+    def mallocs():
+        st = torch.cuda.memory_stats()
+        return st.get("num_device_alloc", st["segment.all.allocated"])
+
+    def window(name, eng, n, setup, decode="K2/K4"):
+        walls, m0 = [], mallocs()
+        for _ in range(3):
+            setup()
+            walls.append(steps(eng, n))
+        wall, n_malloc = sorted(walls)[1], mallocs() - m0
         setup()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            steps(n)
+            steps(eng, n)
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
 
@@ -682,14 +768,12 @@ def profile_windows(eng, out_dir: str) -> None:
         busy = sum(dev(e) for e in kernels)
         groups: dict[str, float] = {}
         for e in kernels:
-            # K2 is three CUDA launches: paged_decode_{scores,tiles,
-            # combine}_kernel
-            key = ("K1 prefill_kernel" if "prefill_kernel" in e.key else
-                   "K2 paged_decode_*_kernel" if any(
-                       f"paged_decode_{k}_kernel" in e.key
-                       for k in ("scores", "tiles", "combine")) else
+            # K1 is three CUDA launches, prefill_{hist,partial,combine}_
+            # kernel; K2 and K4 three each, had::split_{scores,tile_sums,
+            # combine}_kernel (an engine runs one of the two)
+            key = ("K1 prefill_*_kernel" if "prefill_" in e.key else
+                   f"{decode} split_*_kernel" if "split_" in e.key else
                    "K3 page_score_kernel" if "page_score" in e.key else
-                   "K4 decode_kernel" if "decode_kernel" in e.key else
                    "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key
                    else "gemm" if any(t in e.key for t in
                                       ("gemm", "nvjet", "cutlass", "sm90"))
@@ -698,17 +782,23 @@ def profile_windows(eng, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=80))
-        log(f"profile {name}: {n} steps, wall {wall:.3f} ms, device "
+        log(f"profile {name}: {n} steps, wall {wall:.3f} ms (runs "
+            f"{', '.join(f'{w:.3f}' for w in walls)}; {n_malloc} cudaMalloc "
+            f"calls), device "
             f"{busy:.3f} ms, busy {busy / wall:.3f}; " + "; ".join(
                 f"{k} {v:.3f} ms" for k, v in
                 sorted(groups.items(), key=lambda kv: -kv[1])))
 
-    window("prefill_3072", 1, lambda: eng.submit(prompt(), max_new_tokens=1))
-    for _ in range(4):
-        eng.submit(prompt(), max_new_tokens=64)
-    while eng.queue or any(s.prefilling for s in eng.slots):
-        eng.step()
-    window("decode_4x3k", 8, lambda: None)
+    eng = engines["paged"]
+    window("prefill_3072", eng, 1,
+           lambda: eng.submit(prompt(), max_new_tokens=1))
+    for name, eng in engines.items():
+        for _ in range(4):
+            eng.submit(prompt(), max_new_tokens=64)
+        while eng.queue or any(s.prefilling for s in eng.slots):
+            eng.step()
+        window(f"decode_4x3k_{name}", eng, 8, lambda: None,
+               decode="K2" if name == "paged" else "K4")
 
 
 def main() -> int:
@@ -739,9 +829,9 @@ def main() -> int:
         card = phase1()
         records = phase2()
         phase3()
-        counts, eng = phase4()
+        counts, engines = phase4()
         if args.profile:
-            profile_windows(eng, args.profile)
+            profile_windows(engines, args.profile)
     except Exception:
         traceback.print_exc()
         return 1

@@ -12,6 +12,8 @@ device.
 The kernel splits each row's key axis into fixed runs of ``SPLIT_TILES``
 64-position tiles; ``split_plan`` gives the grid and the scratch size from
 tensor shapes alone, so a call never reads a length back from the device.
+The contiguous-cache decode kernel (``binary_decode_attention``) runs the
+same split launches and takes its plan from here.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ launches = 0
 
 # Tiles of TILE_KEYS positions per split of the key axis: one CTA per (row,
 # split). 4 beat 8 on the H100 at the serving shapes (chip_smoke.py phase 2
-# times both).
+# times both). Read at each launch, by this kernel and the contiguous-cache
+# decode kernel; any value gives the same bits.
 SPLIT_TILES = 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -42,16 +45,16 @@ class SplitPlan(NamedTuple):
     scratch_words: int    # int32 words of the kernel's scratch buffer
 
 
-def split_plan(q_shape, table_shape, dv: int, d: int, page: int,
+def split_plan(q_shape, n_pos: int, dv: int, d: int,
                split_tiles: int = SPLIT_TILES) -> SplitPlan:
-    """Grid and scratch of the split kernel for q [R, G, W] and row tables
-    [R, nb] over pages of `page` positions with V width `dv`: shapes only,
-    never lengths or counts. The scratch holds, per row, S histograms
-    [G, d+1], the tile maxima [n_tiles] and the least threshold (int32),
-    then the tile sums [n_tiles, G*Dv + G] (float32)."""
+    """Grid and scratch of the split decode for q [R, G, W] over `n_pos`
+    logical positions a row (nb * page for a paged row, T for a dense
+    cache row) with V width `dv`: shapes only, never lengths or counts. The
+    scratch holds, per row, S histograms [G, d+1], the tile maxima
+    [n_tiles] and the least threshold (int32), then the tile sums
+    [n_tiles, G*Dv + G] (float32)."""
     r, g, _ = q_shape
-    nb = table_shape[1]
-    n_tiles = -(-nb * page // TILE_KEYS)
+    n_tiles = -(-n_pos // TILE_KEYS)
     n_splits = -(-n_tiles // split_tiles)
     words = r * (n_splits * g * (d + 1) + n_tiles + 1
                  + n_tiles * (g * dv + g))
@@ -69,16 +72,14 @@ def _fn():
 def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            counts: torch.Tensor, *, d: int, nsel: int,
-                           scale: float,
-                           split_tiles: int = SPLIT_TILES) -> torch.Tensor:
+                           scale: float) -> torch.Tensor:
     """Launch the paged decode kernel.
 
     q_bits [R, G, W] int32 (R = B*Hk rows); k_pool [n_pages, Hk, W, page]
     int32 bit-planes; v_pool [n_pages, Hk, page, Dv] float32 or bfloat16;
     block_tables / counts [R, nb] int32 (row tables, valid tokens per listed
     block). Table entries outside [0, n_pages) are treated as count 0.
-    split_tiles: 64-position tiles per CTA of the key axis (any value gives
-    the same bits). Returns [R, G, Dv] float32.
+    Returns [R, G, Dv] float32.
     """
     global launches
     r, g, w = q_bits.shape
@@ -96,8 +97,7 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
                   k_pool=k_pool, block_tables=block_tables, counts=counts)
     build.require(q_bits.device, (torch.float32, torch.bfloat16),
                   v_pool=v_pool)
-    plan = split_plan(q_bits.shape, block_tables.shape, dv, d, page,
-                      split_tiles)
+    plan = split_plan(q_bits.shape, nb * page, dv, d, SPLIT_TILES)
     out = torch.empty((r, g, dv), dtype=torch.float32, device=q_bits.device)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=q_bits.device)
@@ -105,7 +105,7 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
     err = _fn()(q_bits.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), counts.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), r, g, w, page, dv, nb, hk, n_pages, d,
-                int(nsel), float(scale), int(split_tiles),
+                int(nsel), float(scale), SPLIT_TILES,
                 int(v_pool.dtype == torch.bfloat16), stream)
     build.check(err, NAME)
     launches += 1

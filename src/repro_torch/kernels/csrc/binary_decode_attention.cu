@@ -4,20 +4,22 @@
 // Replaces: src/repro/kernels/binary_decode_attention.py
 //           decode_attention (_decode_kernel, with _scores / _threshold).
 //
-// One CTA per (slot, kv-head) row with its G grouped queries, keys as
-// bit-planes [W, T] and V rows [T, Dv]; position j holds a valid key when
-// j < length. The Pallas kernel's sequential (pass, block) grid with VMEM
-// scratch becomes a loop inside the CTA: had_decode.cuh's decode_row, the
-// same device code the paged decode kernel runs, with its per-tile block
-// skip (a 64-position tile whose best score misses every query's threshold
-// reads no V). Only the address of a key differs, so the dense cache and
-// the page pools give bit-identical outputs for the same tokens. The TPU's
-// block_t tile has no counterpart: the loop stops at the row's length.
+// Each (slot, kv-head) row holds its G grouped queries, keys as bit-planes
+// [W, T] and V rows [T, Dv]; position j holds a valid key when j < length.
+// The Pallas kernel's sequential (pass, block) grid with VMEM scratch
+// becomes had_decode.cuh's split decode, the same three launches the paged
+// kernel (K2) runs: the key axis cut into fixed splits of `split_tiles`
+// 64-position tiles, one CTA per (row, split) for the split histograms and
+// tile maxima, one per (row, split) for the tile sums (a tile whose best
+// score misses every query's threshold reads no V), and an ordered
+// combine. The grid (R, ceil(T / (64 * split_tiles))) comes from shapes
+// alone. Only the address of a key differs from K2 (DenseKeys), so the
+// dense cache and the page pools give bit-identical outputs for the same
+// tokens. The TPU's block_t tile has no counterpart.
 //
 // What bounds it on an H100: bytes, as for the paged kernel (W*4 bytes of K
-// per valid key, Dv*2 bytes of V per kept key). At serving widths the grid
-// is B*Hk CTAs, far too few for 132 SMs; splitting the key axis is the
-// redesign it shares with the paged kernel.
+// per valid key, Dv*2 bytes of V per kept key), and at serving shapes the
+// latency of the tile-sum launch, which walks its split's tiles in turn.
 #include "had_decode.cuh"
 
 namespace {
@@ -33,58 +35,48 @@ struct DenseKeys {
   __device__ const VT* v(int j) const { return v_row + (size_t)j * Dv; }
 };
 
+// Where a row's keys live: row `row` of the cache, valid below its length.
 template <typename VT>
-__global__ void __launch_bounds__(had::kDecodeThreads)
-decode_kernel(const uint32_t* __restrict__ q,    // [R, G, W]
-              const uint32_t* __restrict__ k,    // [R, W, T]
-              const VT* __restrict__ v,          // [R, T, Dv]
-              const int* __restrict__ lengths,   // [R]
-              float* __restrict__ out,           // [R, G, Dv]
-              int G, int W, int T, int Dv, int d, int nsel, float scale) {
-  extern __shared__ int smem[];
-  const int row = blockIdx.x;
-  const int n_pos = max(0, min(lengths[row], T));
-  const DenseKeys<VT> keys{k + (size_t)row * W * T, v + (size_t)row * T * Dv,
-                           n_pos, Dv, T};
-  had::decode_row<VT>(keys, n_pos, q + (size_t)row * G * W,
-                      out + (size_t)row * G * Dv, G, W, Dv, d, nsel, scale,
-                      smem);
-}
+struct DenseSrc {
+  const uint32_t* k;     // [R, W, T]
+  const VT* v;           // [R, T, Dv]
+  const int* lengths;    // [R]
+  int n_pos, split_tiles, W, Dv;  // n_pos = T
 
-template <typename VT>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int R, int G, int W, int T,
-                   int Dv, int d, int nsel, float scale, cudaStream_t stream) {
-  const size_t smem = had::decode_smem_bytes(G, W, Dv, d, T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
+  __host__ __device__ int smem_words() const { return 0; }
+  __device__ DenseKeys<VT> keys(int row, int, int, int*) const {
+    return DenseKeys<VT>{k + (size_t)row * W * n_pos,
+                         v + (size_t)row * n_pos * Dv,
+                         max(0, min(lengths[row], n_pos)), Dv, n_pos};
   }
-  decode_kernel<VT><<<R, had::kDecodeThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
-      static_cast<const VT*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(out), G, W, T, Dv, d, nsel, scale);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
+// scratch: int32 words, as many as the wrapper's split_plan gives:
+// R * (S * G * (d+1) + n_tiles + 1) ints, then R * n_tiles * (G*Dv + G)
+// floats.
 extern "C" int had_decode_attention(const void* q, const void* k,
                                     const void* v, const void* lengths,
-                                    void* out, int R, int G, int W, int T,
-                                    int Dv, int d, int nsel, float scale,
-                                    int v_bf16, void* stream) {
+                                    void* out, void* scratch, int R, int G,
+                                    int W, int T, int Dv, int d, int nsel,
+                                    float scale, int split_tiles, int v_bf16,
+                                    void* stream) {
   if (W < 1 || W > had::kMaxWords || d < 1 || d > 32 * W || G < 1 ||
-      T < 1 || Dv < 1)
+      Dv < 1 || !had::split_shape_ok(T, split_tiles))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      v_bf16 ? launch<__nv_bfloat16>(q, k, v, lengths, out, R, G, W, T, Dv, d,
-                                     nsel, scale, s)
-             : launch<float>(q, k, v, lengths, out, R, G, W, T, Dv, d, nsel,
-                             scale, s);
-  return (int)err;
+  const auto* kw = static_cast<const uint32_t*>(k);
+  const auto* len = static_cast<const int*>(lengths);
+  if (v_bf16) {
+    const DenseSrc<__nv_bfloat16> src{
+        kw, static_cast<const __nv_bfloat16*>(v), len, T, split_tiles, W, Dv};
+    return (int)had::launch_split<__nv_bfloat16>(q, src, out, scratch, R, G,
+                                                 W, Dv, d, nsel, scale, s);
+  }
+  const DenseSrc<float> src{kw, static_cast<const float*>(v), len, T,
+                            split_tiles, W, Dv};
+  return (int)had::launch_split<float>(q, src, out, scratch, R, G, W, Dv, d,
+                                       nsel, scale, s);
 }

@@ -57,4 +57,13 @@ __device__ __forceinline__ int threshold(const int* hist, int nsel, int d) {
   return 2 * idx - d;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory (past the 48 KB a
+// launch gets without asking).
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace had

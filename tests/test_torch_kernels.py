@@ -15,6 +15,8 @@ with the card has a CUDA build of JAX too: run this file there with
 tests/test_torch_kernels.py`), or JAX's float32 matmuls run in TF32. The
 JAX cases skip where JAX is missing.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -243,7 +245,7 @@ def test_split_plan_depends_on_shapes_only(nb, page):
         tables, counts, _ = ops._row_tables(torch.from_numpy(bt),
                                             torch.from_numpy(lens), hk, page)
         q = _t(qb).reshape(b * hk, h // hk, -1)
-        plans.append(pdec.split_plan(q.shape, tables.shape, dv, d, page))
+        plans.append(pdec.split_plan(q.shape, tables.shape[1] * page, dv, d))
     assert plans[0] == plans[1]
     plan = plans[0]
     r, g, t = b * hk, h // hk, ref.TILE_KEYS
@@ -253,8 +255,41 @@ def test_split_plan_depends_on_shapes_only(nb, page):
     assert plan.scratch_words == r * (plan.n_splits * g * (d + 1)
                                       + plan.n_tiles + 1
                                       + plan.n_tiles * (g * dv + g))
-    assert pdec.split_plan((r, g, 2), (r, nb), dv, d, page,
+    assert pdec.split_plan((r, g, 2), nb * page, dv, d,
                            split_tiles=4).n_splits == -(-plan.n_tiles // 4)
+
+
+@pytest.mark.parametrize("kernel,t", [("prefill", 4096), ("prefill", 4097),
+                                      ("prefill", 1), ("decode", 4096),
+                                      ("decode", 53), ("decode", 1)])
+def test_k1_k4_plans_depend_on_shapes_only(kernel, t):
+    """K1's and K4's grids and scratch come from tensor shapes alone (no
+    plan argument can carry a length or an offset), and their splits cut
+    the key axis into runs of SPLIT_TILES 64-key tiles counted from key 0.
+    K4 takes K2's plan with T positions a row."""
+    b, h, hk, s, d, dv = 2, 6, 2, 300, 64, 32
+    g = h // hk
+    mod = pre if kernel == "prefill" else pdec
+    assert list(inspect.signature(mod.split_plan).parameters) == [
+        "q_shape", "t" if kernel == "prefill" else "n_pos", "dv", "d",
+        "split_tiles"]
+    keys = mod.SPLIT_TILES * ref.TILE_KEYS
+    if kernel == "prefill":
+        plan = pre.split_plan((b * h, s, 2), t, dv, d)
+        assert plan.n_qtiles == -(-s // pre.QUERY_TILE)
+        blocks = b * h * plan.n_qtiles * plan.n_splits
+        # per block: uint16 histograms [64, d+1], float32 sums [64, dv+1]
+        assert plan.scratch_words * 4 == blocks * pre.QUERY_TILE * (
+            2 * (d + 1) + 4 * (dv + 1))
+        assert pre.split_plan((b * h, s, 2), t, dv, d, split_tiles=4) \
+            .n_splits == -(-t // (4 * ref.TILE_KEYS))
+    else:
+        plan = pdec.split_plan((b * hk, g, 2), t, dv, d)
+        assert plan.n_tiles == -(-t // ref.TILE_KEYS)
+        assert plan.scratch_words == b * hk * (
+            plan.n_splits * g * (d + 1) + plan.n_tiles + 1
+            + plan.n_tiles * (g * dv + g))
+    assert (plan.n_splits - 1) * keys < t <= plan.n_splits * keys
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +625,8 @@ def _split_case(name, split):
 @pytest.mark.parametrize("split_tiles", [4, 8])
 @pytest.mark.parametrize("name", ["split_edges", "one_key_and_idle",
                                   "last_split_only"])
-def test_split_paged_decode_cuda_matches_plain(cuda, name, split_tiles):
+def test_split_paged_decode_cuda_matches_plain(cuda, monkeypatch, name,
+                                               split_tiles):
     """The split K2 against its plain version at the edges of its splits;
     another split size gives the same bits; idle rows are exactly 0."""
     q, k_pool, v_pool, tables, counts = _split_case(
@@ -601,9 +637,10 @@ def test_split_paged_decode_cuda_matches_plain(cuda, name, split_tiles):
                                                counts, **kw)
     args = [x.to(cuda) for x in (q, k_pool, v_pool, tables, counts)]
     before = pdec.launches
-    got = pdec.paged_decode_attention(*args, split_tiles=split_tiles, **kw)
-    other = pdec.paged_decode_attention(
-        *args, split_tiles={4: 8, 8: 4}[split_tiles], **kw)
+    monkeypatch.setattr(pdec, "SPLIT_TILES", split_tiles)
+    got = pdec.paged_decode_attention(*args, **kw)
+    monkeypatch.setattr(pdec, "SPLIT_TILES", {4: 8, 8: 4}[split_tiles])
+    other = pdec.paged_decode_attention(*args, **kw)
     torch.cuda.synchronize()
     assert pdec.launches == before + 2
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
@@ -711,3 +748,130 @@ def test_hamming_int8_cuda_exact(cuda, d, shape):
     torch.cuda.synchronize()
     assert hs.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# the split K1 at the edges of its splits and query tiles (SPLIT = its keys
+# per split): name -> (b, h, hk, s, t, d, dv, kv_length, q_offset, q_length)
+SPLIT = pre.SPLIT_TILES * ref.TILE_KEYS
+K1_EDGE_CASES = {
+    "kv_length_split_edges": (3, 2, 1, 64, 3 * SPLIT, 64, 64,
+                              [SPLIT - 1, SPLIT, SPLIT + 1],
+                              [SPLIT - 65, SPLIT - 64, SPLIT - 63],
+                              [64, 64, 64]),
+    "q_tile_straddles_q_length": (2, 4, 2, 192, 2 * SPLIT, 64, 64,
+                                  [250, 108], [100, 0], [150, 108]),
+    "one_visible_key": (2, 2, 1, 64, SPLIT, 64, 64, [1, 1], [0, 700],
+                        [1, 5]),
+    "q_offset_0_one_query": (2, 2, 1, 128, 2 * SPLIT, 64, 64, [1, SPLIT + 9],
+                             [0, SPLIT - 119], [1, 128]),
+    "all_slots_idle": (3, 2, 1, 64, SPLIT, 64, 64, [0, 40, 0], [0, 40, 0],
+                       [0, 0, 0]),
+    "dv16_d16": (2, 2, 1, 96, SPLIT + 64, 16, 16, [SPLIT + 50, 96],
+                 [SPLIT - 40, 0], [90, 96]),
+    "dv32_d48": (2, 2, 1, 96, SPLIT + 64, 48, 32, [SPLIT + 50, 96],
+                 [SPLIT - 40, 0], [90, 96]),
+    "dv128_d128": (2, 2, 1, 96, SPLIT + 64, 128, 128, [SPLIT + 50, 96],
+                   [SPLIT - 40, 0], [90, 96]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K1_EDGE_CASES))
+def test_split_prefill_cuda_matches_plain(cuda, case, vdtype):
+    """The split K1 against its plain version where splits, query tiles and
+    lengths meet; rows at or past q_length are exactly 0."""
+    b, h, hk, s, t, d, dv, kvl, qoff, qlen = K1_EDGE_CASES[case]
+    qb, kb, v = _prefill_inputs(b, h, hk, s, t, d, dv, seed=len(case))
+    v = torch.from_numpy(v).to(vdtype)
+    kw = dict(d=d, nsel=100, scale=0.125, kv_length=kvl, q_offset=qoff,
+              q_length=qlen)
+    want = ops.prefill_attention(_t(qb), _t(kb), v, **kw)
+    before = pre.launches
+    got = ops.prefill_attention(_t(qb).to(cuda), _t(kb).to(cuda), v.to(cuda),
+                                **kw).cpu()
+    assert pre.launches == before + 1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **CUDA_TOL)
+    past = torch.arange(s)[None, :] >= torch.tensor(qlen)[:, None]
+    assert (got[past[:, None].expand(b, h, s)] == 0).all()
+
+
+def _invariance_inputs(slot, t, seed=11):
+    """4 slots (3 heads, 1 kv head, d 64, bf16 V), the queries and keys of
+    one 512-token chunk at offset 1000 in `slot`, every other slot idle."""
+    b, h, s, d, dv, off = 4, 3, 512, 64, 64, 1000
+    qb, kb, v = _prefill_inputs(1, h, 1, s, t, d, dv, seed=seed)
+    q = torch.zeros((b, h, s, qb.shape[-1]), dtype=torch.int32)
+    k = torch.zeros((b, 1, t, kb.shape[-1]), dtype=torch.int32)
+    vv = torch.zeros((b, 1, t, dv), dtype=torch.bfloat16)
+    q[slot], k[slot], vv[slot] = _t(qb)[0], _t(kb)[0], torch.from_numpy(
+        v[0]).to(torch.bfloat16)
+    lengths = torch.zeros(b, dtype=torch.int32)
+
+    def run(lo, hi):           # queries [lo, hi) of the chunk as one call
+        qlen, qoff = lengths.clone(), lengths.clone()
+        qlen[slot], qoff[slot] = hi - lo, off + lo
+        out = ops.prefill_attention(
+            q[:, :, lo:hi].contiguous().cuda(), k.cuda(), vv.cuda(), d=d,
+            nsel=200, scale=0.125, kv_length=(qoff + qlen).cuda(),
+            q_offset=qoff.cuda(), q_length=qlen.cuda())
+        return out[slot].cpu()
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setup", ["two_256_chunks", "chunks_200_312",
+                                   "t_4097", "slot_3"])
+def test_split_prefill_cuda_invariance(cuda, setup):
+    """A query's K1 output depends only on its own kept keys at their
+    logical positions: the same queries and keys give bit-identical rows as
+    one 512-query chunk or as two chunks (a 200/312 cut moves every query
+    to another row of its tile), with T = 4096 or 4097, in slot 0 or 3."""
+    run = _invariance_inputs(0, 4096)
+    whole = run(0, 512)
+    if setup == "two_256_chunks":
+        other = torch.cat([run(0, 256), run(256, 512)], dim=1)
+    elif setup == "chunks_200_312":
+        other = torch.cat([run(0, 200), run(200, 512)], dim=1)
+    elif setup == "t_4097":
+        other = _invariance_inputs(0, 4097)(0, 512)
+    else:
+        other = _invariance_inputs(3, 4096)(0, 512)
+    assert torch.equal(whole, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_tiles", [1, 2, 4, 8])
+def test_dense_decode_split_sizes_equal_paged(cuda, monkeypatch, split_tiles):
+    """K4 on K2's split launches: bit-identical across split sizes, and
+    equal to K2 bit for bit at lengths split-1, split and split+1."""
+    split = pdec.SPLIT_TILES * ref.TILE_KEYS
+    b, h, hk, page, d, dv = 3, 6, 2, 16, 64, 64
+    nb = 3 * split // page
+    lengths = [split - 1, split, split + 1]
+    qb, kb, v, k_pool, v_pool, bt, lens = _dense_and_paged(
+        b, h, hk, nb, page, d, dv, 3 * split + 5, lengths, seed=split_tiles)
+    g, t = h // hk, kb.shape[2]
+    q = _t(qb).reshape(b * hk, g, -1).to(cuda)
+    planes = _t(kb).transpose(-1, -2).reshape(b * hk, -1, t).contiguous() \
+        .to(cuda)
+    vv = torch.from_numpy(v).to(torch.bfloat16).reshape(b * hk, t, dv) \
+        .to(cuda)
+    len_f = torch.from_numpy(lens).repeat_interleave(hk).to(cuda)
+    kw = dict(d=d, nsel=100, scale=0.125)
+    before = dec.launches
+    default = dec.decode_attention(q, planes, vv, len_f, **kw)
+    paged = ops.paged_decode_attention(
+        _t(qb).to(cuda), _t(k_pool).to(cuda),
+        torch.from_numpy(v_pool).to(torch.bfloat16).to(cuda),
+        torch.from_numpy(bt).to(cuda), lengths=torch.from_numpy(lens).to(cuda),
+        **kw)
+    monkeypatch.setattr(pdec, "SPLIT_TILES", split_tiles)
+    got = dec.decode_attention(q, planes, vv, len_f, **kw)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 2
+    want = ref.decode_attention_ref(q.cpu(), planes.cpu().transpose(-1, -2),
+                                    vv.cpu(), lengths=len_f.cpu(), **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+    assert torch.equal(got, default)
+    assert torch.equal(got.reshape(b, h, dv), paged)
