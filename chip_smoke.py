@@ -23,7 +23,13 @@ runs four phases; any failure exits non-zero before the result line.
    time, and the host time of one call (the wrapper's enqueue on an idle
    stream). K1 is also timed at 4- and 8-tile splits, K2 and K4 at 2, 4
    and 8 (K4 must give the same bits at 1, 2, 4 and 8); K5's two methods
-   get a record each. Each bound prices a kind of operation at its own
+   get a record each. K3 (fused page bounds + selection + compaction:
+   bounds, tables, counts and logical ids exact, on four length and key
+   sets at n_sel 64, 255 and 256) and K5, whose device time is near the
+   host time of a call, are timed by device time, 200 calls replayed from
+   one CUDA graph (back-to-back event time beside it); K3 also beside the
+   design it replaced, the bounds-only kernel and then ops.select_pages on
+   the card. Each bound prices a kind of operation at its own
    peak: integer and float32 work on the CUDA cores, K1's E.V (three bf16
    products a multiply-add) at the bf16 tensor-core rate, K5 int8 at the
    int8 tensor-core rate.
@@ -44,16 +50,20 @@ runs four phases; any failure exits non-zero before the result line.
    times a step (a chunk for the prefill kernel, a decode step for the
    decode and page-score kernels; an op call counts once, whatever CUDA
    launches it makes). The dense and page_topn-255 tokens must equal the
-   paged run's; page_topn 64 must attend fewer pages.
+   paged run's; page_topn 64 must attend fewer pages, and a fifth run of
+   it with the unfused selection must attend the same pages and give the
+   same tokens (its launches are not counted).
 
-`--profile DIR` then profiles the prefill of one 3072-token prompt and a
-decode window of the paged and of the dense engine. Then the kernel record
-line and, last, the result line.
+`--profile DIR` then profiles the prefill of one 3072-token prompt and
+decode windows of the paged, the dense and the page_topn-64 engine (the
+last unfused and fused in turn). Then the kernel record line and, last,
+the result line.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -109,6 +119,57 @@ def host_us(fn, calls: int = 20) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / calls * 1e6
+
+
+def device_ms(fn, iters: int = 200) -> float:
+    """Device time of one call: `iters` calls captured in one CUDA graph,
+    the graph replayed between two CUDA events, divided by `iters`. Unlike
+    cuda_ms, it does not count the time the device waits for the host to
+    enqueue the next call. (torch.profiler would give kernel durations too,
+    but a profiled process launches slower afterwards, which would bias
+    phase 4; the profiler runs only after it, in --profile.)"""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # warm-up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+@contextlib.contextmanager
+def unfused_select():
+    """Page-sparse decode selects pages as the port did before K3 took the
+    selection in: the bounds-only kernel, then ops.select_pages on the card
+    (eager sorts, gathers and casts). The launch count stays one a call."""
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import ops
+    fused = pscore.paged_select_pages
+
+    def unfused(q, k_pool, tables, counts, lengths, *, d, page, n_sel):
+        scores = pscore.paged_page_scores(q, k_pool, tables, counts, d=d)
+        return ops.select_pages(scores, tables, lengths, page=page,
+                                n_sel=n_sel)
+
+    pscore.paged_select_pages = unfused
+    try:
+        yield
+    finally:
+        pscore.paged_select_pages = fused
 
 
 def bound(nbytes: float, ops) -> tuple[float, str]:
@@ -368,37 +429,97 @@ def phase2() -> dict:
     return records
 
 
+def _tie_pool(k_pool, gen):
+    """The pool with every key of a page set to one of three words, so that
+    many pages share one bound."""
+    import torch
+    words = _bits((3, D), gen)                                  # [3, W]
+    pick = torch.randint(0, 3, (k_pool.shape[0],), generator=gen,
+                         device="cuda")
+    return words[pick][:, None, :, None].expand_as(k_pool).contiguous()
+
+
 def _phase2_k3(gen) -> dict:
-    """K3 over the paged case's pools: exact integers."""
+    """K3, the fused page bounds + selection + compaction, over the paged
+    case's pools: bounds, tables, counts and logical ids equal the plain
+    version's exactly, on phase 2's two length sets, a set with a length-0
+    row, a page multiple and a full table, and tie-heavy keys, at the
+    serving path's n_sel (64, 255) and n_sel = nb. Timed by device time,
+    beside the back-to-back event time and the host time of one call, and
+    beside the design it replaced (the bounds-only kernel, then
+    ops.select_pages on the card) on the same inputs."""
     import torch
     from repro_torch.kernels import binary_page_score as pscore
     from repro_torch.kernels import ops, ref
-    for lengths in ([3104, 1537, 600, 33], [4095, 1, 17, 2048]):
+    cases = [("A", [3104, 1537, 600, 33], False),
+             ("B", [4095, 1, 17, 2048], False),
+             ("C", [0, 1024, 4096, 160], False),
+             ("A ties", [3104, 1537, 600, 33], True)]
+    for name, lengths, ties in cases:
         q, k_pool, _, bt, lens = _paged_case(gen, lengths)
-        bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
+        if ties:
+            k_pool = _tie_pool(k_pool, gen)
+        bt_rows, counts, len_f = ops._row_tables(bt, lens, HK, PAGE)
         qf = q.reshape(B * HK, G, W).contiguous()
-        got = pscore.paged_page_scores(qf, k_pool, bt_rows, counts, d=D)
-        want = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts, d=D)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K3 page scores {lengths}")
-        check(bool((got[counts == 0] == -D).all()), "count-0 blocks score -d")
-        log(f"phase 2: K3 page scores lengths {lengths} exact "
-            f"({int((counts > 0).sum())} listed pages)")
+        want_s = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts, d=D)
+        check(torch.equal(pscore.paged_page_scores(qf, k_pool, bt_rows,
+                                                   counts, d=D), want_s),
+              f"K3 bounds-only kernel [{name}]")
+        for n_sel in (64, 255, NB):
+            scores = torch.empty_like(want_s)
+            got = pscore.paged_select_pages(qf, k_pool, bt_rows, counts,
+                                            len_f, d=D, page=PAGE,
+                                            n_sel=n_sel, scores_out=scores)
+            want = ref.paged_select_pages_ref(qf, k_pool, bt_rows, counts,
+                                              len_f, d=D, page=PAGE,
+                                              n_sel=n_sel)
+            torch.cuda.synchronize()
+            check(torch.equal(scores, want_s), f"K3 bounds [{name}] {n_sel}")
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"K3 tables/counts/logical [{name}] n_sel {n_sel}")
+        check(bool((want_s[counts == 0] == -D).all()),
+              "count-0 blocks score -d")
+        log(f"phase 2: K3 page select [{name}] lengths {lengths} exact at "
+            f"n_sel 64/255/256 (bounds, tables, counts, logical; "
+            f"{int((counts > 0).sum())} listed pages, "
+            f"{int(want_s.unique().numel())} distinct bounds)")
     q, k_pool, _, bt, lens = _paged_case(gen, [3104, 1537, 600, 33])
-    bt_rows, counts, _ = ops._row_tables(bt, lens, HK, PAGE)
+    bt_rows, counts, len_f = ops._row_tables(bt, lens, HK, PAGE)
     qf = q.reshape(B * HK, G, W).contiguous()
+    n_sel = 64                                   # page_topn 64's cut
+
     def k3():
-        return pscore.paged_page_scores(qf, k_pool, bt_rows, counts, d=D)
-    ms = cuda_ms(k3, iters=200)
-    plain_ms = cuda_ms(lambda: ref.paged_page_scores_ref(
-        qf, k_pool, bt_rows, counts, d=D), iters=10, warmup=2)
+        return pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
+                                         d=D, page=PAGE, n_sel=n_sel)
+
+    def unfused():
+        return ops.select_pages(pscore.paged_page_scores(
+            qf, k_pool, bt_rows, counts, d=D), bt_rows, len_f, page=PAGE,
+            n_sel=n_sel)
+
+    check(all(torch.equal(a, b) for a, b in zip(k3(), unfused())),
+          "K3 fused == bounds kernel + select_pages")
+    ms = device_ms(k3)
+    timed = {"fused": (ms, cuda_ms(k3, iters=200), host_us(k3)),
+             "bounds kernel + select_pages": (
+                 device_ms(unfused), cuda_ms(unfused, iters=200),
+                 host_us(unfused))}
+    for what, (dev, b2b, host) in timed.items():
+        log(f"phase 2: K3 [{what}] device {dev:.4f} ms a call, back-to-back "
+            f"events {b2b:.4f} ms, host {host:.1f} us a call"
+            + (" (back-to-back measures the host)" if host / 1e3 >= dev
+               else ""))
+    plain_ms = cuda_ms(lambda: ref.paged_select_pages_ref(
+        qf, k_pool, bt_rows, counts, len_f, d=D, page=PAGE, n_sel=n_sel),
+        iters=10, warmup=2)
     r = B * HK
     n_keys = lens.sum().item() * HK
-    work = (r * G * W * 4 + n_keys * W * 4 + 3 * r * NB * 4,
+    work = (r * G * W * 4 + n_keys * W * 4 + 2 * r * NB * 4 + r * 4
+            + 3 * r * n_sel * 4,
             [(n_keys * W * 2 + r * NB * G * W * 6, CUDA_CORE_OPS_PER_S)])
     return {pscore.NAME: _record(
         pscore, "src/repro/kernels/binary_page_score.py:68", 0.0, ms,
-        plain_ms, work, host_us(k3))}
+        plain_ms, work, timed["fused"][2])}
 
 
 def _phase2_k4(gen) -> dict:
@@ -466,9 +587,9 @@ def _phase2_k4(gen) -> dict:
 
 def _phase2_k5(gen) -> dict:
     """K5 on q [3, 1536, 2] x k [3, 4096, 2], both methods exact, a record
-    each; the library yardstick is torch._int_mm on the unpacked +-1 int8
-    matrices (unpack excluded), one call per batch entry (it takes 2-D
-    operands)."""
+    each, timed by device time (a call is near its host time); the library
+    yardstick is torch._int_mm on the unpacked +-1 int8 matrices (unpack
+    excluded), one call per batch entry (it takes 2-D operands)."""
     import torch
     from repro_torch.core import hamming
     from repro_torch.kernels import hamming_score as hs
@@ -480,11 +601,13 @@ def _phase2_k5(gen) -> dict:
         got = hs.hamming_score(qh, kh, D, method=method)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K5 {method} scores")
-        ms[method] = cuda_ms(lambda: hs.hamming_score(qh, kh, D,
-                                                      method=method),
-                             iters=200)
-        log(f"phase 2: K5 hamming_score [{method}] exact, {ms[method]:.4f} "
-            f"ms")
+
+        def k5():
+            return hs.hamming_score(qh, kh, D, method=method)
+        ms[method] = device_ms(k5)
+        log(f"phase 2: K5 hamming_score [{method}] exact, device "
+            f"{ms[method]:.4f} ms a call, back-to-back events "
+            f"{cuda_ms(k5, iters=200):.4f} ms")
     q8 = hamming.unpack_bits(qh, D).to(torch.int8)
     k8 = hamming.unpack_bits(kh, D).to(torch.int8)
 
@@ -492,7 +615,7 @@ def _phase2_k5(gen) -> dict:
         return [torch._int_mm(q8[i], k8[i].T) for i in range(3)]
 
     check(torch.equal(torch.stack(library()), want), "torch._int_mm scores")
-    library_ms = cuda_ms(library, iters=200)
+    library_ms = device_ms(library)
     plain_ms = cuda_ms(lambda: ref.hamming_score_ref(qh, kh, D), iters=3,
                        warmup=1)
     n_out = want.numel()
@@ -609,6 +732,9 @@ def _serve_run(eng, prompts, gen: int) -> dict:
         check(toks.shape == (gen,), (rid, toks.shape))
         check(((toks >= 0) & (toks < eng.cfg.vocab_size)).all(), rid)
     return dict(tokens=[results[rid] for rid in ids], counts=counts,
+                digest=hashlib.sha1(b"".join(
+                    np.asarray(results[rid], np.int64).tobytes()
+                    for rid in ids)).hexdigest()[:12],
                 wall=wall, steps=steps, stats=dict(eng.stats),
                 ttft=np.array([m.ttft for m in metrics]) * 1e3,
                 itl=np.array([x for m in metrics for x in m.itl]) * 1e3)
@@ -649,11 +775,17 @@ def phase4():
              "page_topn_64": (dict(paged=True, page_topn=64),
                               (pdec, pscore))}
     runs, total, engines = {}, {}, {}
+    # the last run repeats page_topn 64 with the selection K3 replaced (the
+    # bounds-only kernel, then ops.select_pages): its pages attended and
+    # tokens must equal the fused run's; its launches are not counted
+    paths["page_topn_64_unfused"] = paths["page_topn_64"]
     for name, (kw, decoders) in paths.items():
         eng = _engine(cfg, model, dict(base, **kw), "cuda",
                       telemetry=Telemetry())
         check(eng.n == NSEL, eng.n)
-        r = _serve_run(eng, prompts, gen)
+        with (unfused_select() if name.endswith("_unfused")
+              else contextlib.nullcontext()):
+            r = _serve_run(eng, prompts, gen)
         st = r["stats"]
         want = {k: 0 for k in r["counts"]}
         want[pre.NAME] = cfg.n_layers * st["prefill_chunks"]
@@ -661,13 +793,14 @@ def phase4():
             want[mod.NAME] = cfg.n_layers * st["decode_steps"]
         check(r["counts"] == want and st["decode_steps"] > 0,
               (name, r["counts"], want))
-        for k, v in r["counts"].items():
-            total[k] = total.get(k, 0) + v
+        if not name.endswith("_unfused"):
+            for k, v in r["counts"].items():
+                total[k] = total.get(k, 0) + v
         log(f"phase 4 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
             f"prefill chunks, {st['decode_steps']} decode steps, launches "
             f"{r['counts']}, decode pages attended "
             f"{st['decode_pages_touched']}, decode KV bytes "
-            f"{st['decode_hbm_bytes']}")
+            f"{st['decode_hbm_bytes']}, tokens sha1 {r['digest']}")
         log(f"phase 4 [{name}]: wall {r['wall']:.3f} s, "
             f"{st['tokens_generated'] / r['wall']:.2f} generated tok/s, TTFT "
             f"p50/p95 {np.percentile(r['ttft'], 50):.2f}/"
@@ -676,7 +809,7 @@ def phase4():
             f"{np.percentile(r['itl'], 95):.2f} ms, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         runs[name] = r
-        if name in ("paged", "dense"):
+        if name in ("paged", "dense", "page_topn_64"):
             engines[name] = eng
     for name in ("dense", "page_topn_255"):
         same = all(np.array_equal(a, b) for a, b in
@@ -685,12 +818,17 @@ def phase4():
     touched = {k: r["stats"]["decode_pages_touched"] for k, r in runs.items()}
     check(touched["page_topn_255"] == touched["paged"], touched)
     check(touched["page_topn_64"] < touched["paged"], touched)
+    check(touched["page_topn_64_unfused"] == touched["page_topn_64"]
+          and runs["page_topn_64_unfused"]["digest"]
+          == runs["page_topn_64"]["digest"],
+          "page_topn 64: the fused selection differs from the unfused one")
     agree = np.mean([np.mean(a == b) for a, b in
                      zip(runs["page_topn_64"]["tokens"],
                          runs["paged"]["tokens"])])
     log(f"phase 4: dense and page_topn 255 tokens equal the paged run's; "
         f"page_topn 64 attends {touched['page_topn_64']} of "
-        f"{touched['paged']} pages, {agree:.3f} of its tokens agree")
+        f"{touched['paged']} pages, {agree:.3f} of its tokens agree; its "
+        f"pages and tokens equal the unfused selection's")
 
     # ops.hamming_scores, the public entry point of K5, at the phase-2
     # shapes on packed bits of seeded Gaussian queries and keys
@@ -722,10 +860,13 @@ def profile_windows(engines: dict, out_dir: str) -> None:
     torch.profiler: the prefill of one 3072-token prompt into the idle
     paged engine (6 chunks in one step: the budget lifts when no slot
     decodes), then 8 decode steps of 4 slots at ~3.1k-token contexts on the
-    paged engine (K2) and on the dense-cache engine (K4). Busy share =
-    device kernel time under the profiler / the median host wall of the
-    unprofiled runs; the caching allocator's cudaMalloc calls in those
-    runs are counted. Writes each window's op table to `out_dir`."""
+    paged engine (K2), the dense-cache engine (K4) and the page_topn-64
+    engine (K3 + K2), the last four times in turn with the selection
+    unfused (the bounds-only kernel, then ops.select_pages) and fused:
+    unfused, fused, fused, unfused. Busy share = device kernel time under
+    the profiler / the median host wall of the unprofiled runs; the caching
+    allocator's cudaMalloc calls in those runs are counted. Writes each
+    window's op table to `out_dir`."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -747,6 +888,15 @@ def profile_windows(engines: dict, out_dir: str) -> None:
     def mallocs():
         st = torch.cuda.memory_stats()
         return st.get("num_device_alloc", st["segment.all.allocated"])
+
+    def fill(eng):
+        """Drain the engine, then prefill 4 slots with 3072-token prompts."""
+        while eng.queue or any(s.request is not None for s in eng.slots):
+            eng.step()
+        for _ in range(4):
+            eng.submit(prompt(), max_new_tokens=64)
+        while eng.queue or any(s.prefilling for s in eng.slots):
+            eng.step()
 
     def window(name, eng, n, setup, decode="K2/K4"):
         walls, m0 = [], mallocs()
@@ -770,10 +920,15 @@ def profile_windows(engines: dict, out_dir: str) -> None:
         for e in kernels:
             # K1 is three CUDA launches, prefill_{hist,partial,combine}_
             # kernel; K2 and K4 three each, had::split_{scores,tile_sums,
-            # combine}_kernel (an engine runs one of the two)
+            # combine}_kernel (an engine runs one of the two); K3 one,
+            # page_select_kernel, or page_score_kernel when unfused, whose
+            # selection's sorts and gathers get a group of their own
             key = ("K1 prefill_*_kernel" if "prefill_" in e.key else
                    f"{decode} split_*_kernel" if "split_" in e.key else
+                   "K3 page_select_kernel" if "page_select" in e.key else
                    "K3 page_score_kernel" if "page_score" in e.key else
+                   "sort/gather" if "sort" in e.key.lower()
+                   or "gather" in e.key.lower() else
                    "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key
                    else "gemm" if any(t in e.key for t in
                                       ("gemm", "nvjet", "cutlass", "sm90"))
@@ -782,23 +937,28 @@ def profile_windows(engines: dict, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=80))
-        log(f"profile {name}: {n} steps, wall {wall:.3f} ms (runs "
-            f"{', '.join(f'{w:.3f}' for w in walls)}; {n_malloc} cudaMalloc "
-            f"calls), device "
-            f"{busy:.3f} ms, busy {busy / wall:.3f}; " + "; ".join(
-                f"{k} {v:.3f} ms" for k, v in
+        log(f"profile {name}: {n} steps, host wall {wall / n:.3f} ms a step "
+            f"(runs {', '.join(f'{w:.3f}' for w in walls)} ms; {n_malloc} "
+            f"cudaMalloc calls), device {busy / n:.3f} ms a step, busy "
+            f"{busy / wall:.3f}; per step: " + "; ".join(
+                f"{k} {v / n:.3f} ms" for k, v in
                 sorted(groups.items(), key=lambda kv: -kv[1])))
 
     eng = engines["paged"]
     window("prefill_3072", eng, 1,
            lambda: eng.submit(prompt(), max_new_tokens=1))
     for name, eng in engines.items():
-        for _ in range(4):
-            eng.submit(prompt(), max_new_tokens=64)
-        while eng.queue or any(s.prefilling for s in eng.slots):
-            eng.step()
-        window(f"decode_4x3k_{name}", eng, 8, lambda: None,
-               decode="K2" if name == "paged" else "K4")
+        decode = "K4" if name == "dense" else "K2"
+        if name != "page_topn_64":
+            fill(eng)
+            window(f"decode_4x3k_{name}", eng, 8, lambda: None, decode)
+            continue
+        for i, unfused in enumerate((True, False, False, True)):
+            fill(eng)
+            with (unfused_select() if unfused
+                  else contextlib.nullcontext()):
+                window(f"decode_4x3k_{name}{'_unfused' if unfused else ''}"
+                       f"_{i}", eng, 8, lambda: None, decode)
 
 
 def main() -> int:

@@ -8,9 +8,15 @@
 // Two methods, as in the Pallas kernel, give the same integers, and both
 // mask the ragged edge in the kernel: any M and N, nothing padded.
 //
-//   xor  -- one CTA per (batch, 64-query, 64-key) output tile; the tile's
-//           words are staged in shared memory and each thread writes 16
-//           outputs of one column from XOR + __popc over the W words.
+//   xor  -- one CTA of 8 warps per (batch, 64-query, 128-key) output
+//           tile, the kernel instantiated per word count W. A thread owns 4
+//           consecutive keys -- their W words stay in registers -- and 8
+//           query rows, whose words it reads from shared memory as warp-wide
+//           broadcasts; it writes each row's 4 outputs (XOR + __popc over
+//           the W words) as one 16-byte store, so a warp writes 512
+//           contiguous bytes of a row, or with 4-byte stores when N % 4
+//           breaks the 16-byte alignment. Many CTAs a SM overlap one
+//           tile's stores with the next tile's loads.
 //   int8 -- the dot product of +-1 vectors on the int8 tensor cores, which
 //           is what the Pallas method does on the MXU. One CTA of 8 warps
 //           per (batch, 64-query, 128-key) tile. The tile's words are
@@ -27,16 +33,20 @@
 // What bounds it on an H100: bytes -- the [M, N] int32 output is 4 bytes
 // per pair against W*4 bytes per query or key row read once; the integer
 // work per pair is a few operations (xor) or 2 * K int8 tensor-core
-// operations (int8, 1979 TOP/s), far below the byte time either way. The
-// int8 epilogue is built to stream the output at the memory rate.
+// operations (int8, 1979 TOP/s), far below the byte time either way. Both
+// epilogues are built to stream the output at the memory rate. The xor
+// method's W population counts a pair run on a unit a quarter as wide as
+// the integer ALUs, which can hold it above the byte time at small W.
 #include "had_common.cuh"
 
 namespace {
 
+// xor method: 8 warps; lane l owns keys 4l..4l+3 of the tile, warp w the
+// query rows w, w + 8, ..., w + 56
 constexpr int kThreads = 256;
-constexpr int kBM = 64;  // queries per tile
-constexpr int kBN = 64;  // keys per tile
-constexpr int kRowsPerPass = kThreads / kBN;
+constexpr int kBM = 64;   // queries per tile
+constexpr int kBN = 128;  // keys per tile: 32 lanes x 4
+constexpr int kRowStep = kThreads / 32;
 
 // int8 method: 8 warps as 2 (queries) x 4 (keys), each on a 32 x 32 block
 constexpr int kMmaThreads = 256;
@@ -182,40 +192,66 @@ hamming_int8_kernel(const uint32_t* __restrict__ q,  // [Bt, M, W]
   }
 }
 
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 hamming_xor_kernel(const uint32_t* __restrict__ q,  // [Bt, M, W]
                    const uint32_t* __restrict__ k,  // [Bt, N, W]
                    int* __restrict__ out,           // [Bt, M, N]
-                   int M, int N, int W, int d) {
-  __shared__ uint32_t qw[kBM * (had::kMaxWords | 1)];
-  __shared__ uint32_t kw[kBN * (had::kMaxWords | 1)];
+                   int M, int N, int d) {
+  __shared__ uint32_t qs[kBM * W];
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int bt = blockIdx.z;
   const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+  const int n0 = blockIdx.x * kBN + 4 * lane;  // this thread's first key
   const uint32_t* qb = q + ((size_t)bt * M + m0) * W;
+  for (int x = tid; x < kBM * W; x += kThreads)
+    qs[x] = m0 + x / W < M ? qb[x] : 0u;
+  uint32_t kr[4][W];
   const uint32_t* kb = k + ((size_t)bt * N + n0) * W;
-  const int c = tid % kBN;
-  const int r0 = tid / kBN;
-  int* ob = out + ((size_t)bt * M + m0) * N + n0;
-  const bool col_ok = n0 + c < N;
-
-  // word pitch W | 1 (odd for W > 1): lanes of a warp read distinct banks
-  const int pitch = W | 1;
-  for (int x = tid; x < kBM * W; x += kThreads) {
-    const int r = x / W;
-    qw[r * pitch + x % W] = m0 + r < M ? qb[x] : 0u;
-  }
-  for (int x = tid; x < kBN * W; x += kThreads) {
-    const int r = x / W;
-    kw[r * pitch + x % W] = n0 + r < N ? kb[x] : 0u;
-  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      kr[j][w] = n0 + j < N ? __ldg(kb + j * W + w) : 0u;
   __syncthreads();
-  for (int r = r0; r < kBM; r += kRowsPerPass) {
-    if (m0 + r < M && col_ok)
-      ob[(size_t)r * N + c] = had::score(qw + r * pitch, kw + c * pitch, 1,
-                                         W, d);
+
+  const int n_left = N - n0;  // valid keys from n0 (may be <= 0)
+  const bool vec = (N & 3) == 0 && n_left >= 4;  // 16-byte aligned, whole
+  int* ob = out + ((size_t)bt * M + m0) * N + n0;
+#pragma unroll 2
+  for (int r = warp; r < kBM; r += kRowStep) {
+    if (m0 + r >= M) break;  // rows only grow with r
+    uint32_t qw[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) qw[w] = qs[r * W + w];  // broadcast
+    int s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int ham = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) ham += __popc(qw[w] ^ kr[j][w]);
+      s[j] = d - 2 * ham;
+    }
+    int* op = ob + (size_t)r * N;
+    if (vec) {
+      *reinterpret_cast<int4*>(op) = make_int4(s[0], s[1], s[2], s[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < n_left) op[j] = s[j];
+    }
   }
+}
+
+static_assert(had::kMaxWords == 8, "one launch_xor case per word count");
+
+template <int W>
+void launch_xor(const uint32_t* q, const uint32_t* k, int* out, int Bt,
+                int M, int N, int d, cudaStream_t s) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, Bt);
+  hamming_xor_kernel<W><<<grid, kThreads, 0, s>>>(q, k, out, M, N, d);
 }
 
 }  // namespace
@@ -243,8 +279,16 @@ extern "C" int had_hamming_score(const void* q, const void* k, void* out,
     hamming_int8_kernel<<<grid, kMmaThreads, smem, s>>>(qw, kw, o, M, N, W,
                                                         d);
   } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, Bt);
-    hamming_xor_kernel<<<grid, kThreads, 0, s>>>(qw, kw, o, M, N, W, d);
+    switch (W) {  // the words of a pair unrolled into registers
+      case 1: launch_xor<1>(qw, kw, o, Bt, M, N, d, s); break;
+      case 2: launch_xor<2>(qw, kw, o, Bt, M, N, d, s); break;
+      case 3: launch_xor<3>(qw, kw, o, Bt, M, N, d, s); break;
+      case 4: launch_xor<4>(qw, kw, o, Bt, M, N, d, s); break;
+      case 5: launch_xor<5>(qw, kw, o, Bt, M, N, d, s); break;
+      case 6: launch_xor<6>(qw, kw, o, Bt, M, N, d, s); break;
+      case 7: launch_xor<7>(qw, kw, o, Bt, M, N, d, s); break;
+      default: launch_xor<8>(qw, kw, o, Bt, M, N, d, s); break;
+    }
   }
   return (int)cudaGetLastError();
 }

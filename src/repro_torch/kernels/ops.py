@@ -19,6 +19,7 @@ from repro_torch.kernels import binary_prefill_attention as _pre
 from repro_torch.kernels import hamming_score as _hs
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import row_tables as _row_tables
+from repro_torch.kernels.ref import select_pages  # noqa: F401 (public)
 
 _KERNELS = (_pre, _pdec, _pscore, _dec, _hs)
 
@@ -100,31 +101,6 @@ def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
     return out.reshape(b, h, dv)
 
 
-def select_pages(scores: torch.Tensor, block_tables: torch.Tensor,
-                 lengths: torch.Tensor, *, page: int, n_sel: int):
-    """Phase-1 -> phase-2 handoff: keep each row's top-n_sel pages, with
-    the frontier (tail) page ALWAYS among them.
-
-    scores [R, nb] per-page scores (higher = keep); block_tables [R, nb]
-    int32 physical ids; lengths [R] int32 valid context lengths. n_sel is
-    clamped to nb. Returns compacted (tables [R, n_sel], counts
-    [R, n_sel], logical [R, n_sel]) int32 with blocks in ascending logical
-    order, so phase 2 accumulates in the dense walk's order. Blocks past
-    the frontier are forced out; any still picked (fewer resident blocks
-    than n_sel) keep count 0 and a clamped page id. Ties go to the lowest
-    logical block, as ``lax.top_k`` breaks them in the JAX package, so
-    tables, counts and logical ids equal JAX's exactly.
-    """
-    n_sel = min(n_sel, scores.shape[1])
-    lengths = lengths.to(torch.int32)
-    s = ref.selection_scores(scores, lengths, page=page)
-    idx = ref.top_blocks(s, n_sel).sort(dim=1).values      # ascending
-    counts = (lengths[:, None] - idx * page).clamp(0, page)
-    tables = torch.gather(block_tables.to(torch.int32), 1, idx).clamp_min(0)
-    return (tables.contiguous(), counts.to(torch.int32).contiguous(),
-            idx.to(torch.int32))
-
-
 def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor, *,
                            d: int, nsel: int, scale: float,
@@ -139,10 +115,11 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
 
     page_topn < nb switches on two-phase page-sparse decode: phase 1
     scores every listed page per (slot, kv-head) with the popcount upper
-    bound (K3), `select_pages` compacts each row's table to its top
-    page_topn pages plus the frontier, and phase 2 runs the decode kernel
-    over the compacted table. At page_topn >= resident pages the result is
-    bit-identical to the dense walk.
+    bound and compacts each row's table to its top page_topn pages plus
+    the frontier (`select_pages` of the bounds; on the card one launch of
+    K3 does both), and phase 2 runs the decode kernel over the compacted
+    table. At page_topn >= resident pages the result is bit-identical to
+    the dense walk.
     """
     b, h, w = q_bits.shape
     _, hk, _, page = k_pool.shape
@@ -151,14 +128,10 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
     lengths = _per_slot(lengths, b, q_bits.device)
     bt_rows, counts, len_f = _row_tables(block_tables, lengths, hk, page)
     if page_topn is not None and page_topn < bt_rows.shape[1]:
-        if not q_bits.is_cuda:
-            scores = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts,
-                                               d=d)
-        else:
-            scores = _pscore.paged_page_scores(qf, k_pool, bt_rows, counts,
-                                               d=d)
-        bt_rows, counts, _ = select_pages(scores, bt_rows, len_f, page=page,
-                                          n_sel=page_topn)
+        select = (_pscore.paged_select_pages if q_bits.is_cuda
+                  else ref.paged_select_pages_ref)
+        bt_rows, counts, _ = select(qf, k_pool, bt_rows, counts, len_f, d=d,
+                                    page=page, n_sel=page_topn)
     if not q_bits.is_cuda:
         out = ref.paged_decode_attention_rows_ref(
             qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel, scale=scale)

@@ -6,7 +6,8 @@ Each kernel's plain version takes exactly what its wrapper takes:
 
   K1 ``prefill_attention_ref``           binary_prefill_attention
   K2 ``paged_decode_attention_rows_ref`` binary_paged_decode_attention
-  K3 ``paged_page_scores_ref``           binary_page_score
+  K3 ``paged_select_pages_ref``          binary_page_score (fused: the
+     bounds of ``paged_page_scores_ref``, then ``select_pages``)
   K4 ``decode_attention_ref``            binary_decode_attention
   K5 ``hamming_score_ref``               hamming_score
 
@@ -215,6 +216,44 @@ def selection_scores(scores: torch.Tensor, lengths: torch.Tensor, *,
     frontier = (lengths - 1).clamp_min(0) // page
     s = torch.where(blocks * page < lengths, scores.to(torch.int64), -BIG)
     return torch.where(blocks == frontier, BIG, s)
+
+
+def select_pages(scores: torch.Tensor, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, *, page: int, n_sel: int):
+    """Phase-1 -> phase-2 handoff: keep each row's top-n_sel pages, with
+    the frontier (tail) page ALWAYS among them.
+
+    scores [R, nb] per-page scores (higher = keep); block_tables [R, nb]
+    int32 physical ids; lengths [R] int32 valid context lengths. n_sel is
+    clamped to nb. Returns compacted (tables [R, n_sel], counts
+    [R, n_sel], logical [R, n_sel]) int32 with blocks in ascending logical
+    order, so phase 2 accumulates in the dense walk's order. Blocks past
+    the frontier are forced out; any still picked (fewer resident blocks
+    than n_sel) keep count 0 and a clamped page id. Ties go to the lowest
+    logical block, as ``lax.top_k`` breaks them in the JAX package, so
+    tables, counts and logical ids equal JAX's exactly.
+    """
+    n_sel = min(n_sel, scores.shape[1])
+    lengths = lengths.to(torch.int32)
+    s = selection_scores(scores, lengths, page=page)
+    idx = top_blocks(s, n_sel).sort(dim=1).values      # ascending
+    counts = (lengths[:, None] - idx * page).clamp(0, page)
+    tables = torch.gather(block_tables.to(torch.int32), 1, idx).clamp_min(0)
+    return (tables.contiguous(), counts.to(torch.int32).contiguous(),
+            idx.to(torch.int32))
+
+
+def paged_select_pages_ref(q_bits: torch.Tensor, k_pool: torch.Tensor,
+                           row_tables: torch.Tensor, counts: torch.Tensor,
+                           lengths_rows: torch.Tensor, *, d: int, page: int,
+                           n_sel: int):
+    """Plain version of the fused page-select kernel, on the kernel's
+    inputs: the bounds of ``paged_page_scores_ref``, then
+    ``select_pages``. Returns (tables, counts, logical) [R, min(n_sel, nb)]
+    int32."""
+    scores = paged_page_scores_ref(q_bits, k_pool, row_tables, counts, d=d)
+    return select_pages(scores, row_tables, lengths_rows, page=page,
+                        n_sel=n_sel)
 
 
 def paged_sparse_decode_attention_ref(q_bits: torch.Tensor,

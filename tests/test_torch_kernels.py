@@ -1,5 +1,7 @@
 """The five ported kernels: plain versions against the JAX Pallas kernels,
-and the CUDA kernels against the plain versions.
+and the CUDA kernels against the plain versions (K3's fused bounds +
+selection + compaction against JAX's page scores followed by JAX's
+select_pages).
 
 On the CPU the port's ops layer runs the kernels' plain versions; they are
 held against the JAX package's Pallas kernels run in interpret mode on the
@@ -349,6 +351,99 @@ def test_select_pages_matches_jax(n_sel, seed):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _select_inputs(d, lengths, seed, ties=False, nb=6, page=8, b=3, h=4,
+                   hk=2):
+    """Row inputs of the fused page select: q [R, G, W], a pool, row tables
+    and counts from shuffled per-slot tables, per-row lengths. With `ties`,
+    every key of a page is one of three words, so many pages share a
+    bound. Blocks holding no valid key get out-of-range table entries."""
+    n_pages = b * nb + 4
+    qb, k_pool, _, bt, lens = _paged_inputs(b, h, hk, nb, page, d, 8,
+                                            n_pages, lengths, seed=seed)
+    if ties:
+        rng = np.random.default_rng(seed + 5)
+        words = _bits((3, d), seed + 6)                      # [3, W]
+        pick = rng.integers(0, 3, size=n_pages)
+        k_pool[:] = words[pick][:, None, :, None]
+    tables, counts, len_f = ops._row_tables(torch.from_numpy(bt),
+                                            torch.from_numpy(lens), hk, page)
+    odd = (torch.arange(nb) % 2 == 1)[None]
+    tables = torch.where((counts == 0) & odd, n_pages + 5, tables)
+    qf = qb.reshape(b * hk, h // hk, -1)
+    return qf, k_pool, tables, counts, len_f, hk, page
+
+
+def _jax_select(qf, k_pool, tables, counts, len_f, *, d, hk, page, n_sel):
+    """The JAX kernel path: the Pallas page scores (interpret mode), then
+    the JAX select_pages."""
+    scores = JPS.paged_page_scores(
+        jnp.asarray(qf), jnp.asarray(k_pool), jnp.asarray(tables.numpy()),
+        jnp.asarray(counts.numpy()), d=d, n_kv_heads=hk, interpret=True)
+    return jops.select_pages(scores, jnp.asarray(tables.numpy()),
+                             jnp.asarray(len_f.numpy()), page=page,
+                             n_sel=n_sel)
+
+
+@pytest.mark.parametrize("n_sel", [1, 2, 3, 6, 9])
+@pytest.mark.parametrize("d", [16, 48, 64])
+def test_paged_select_pages_plain_matches_jax(jax_ref, d, n_sel):
+    """The fused kernel's plain version equals JAX's page scores followed by
+    JAX's select_pages exactly: rows with 6, 3 and 0 resident blocks of 6,
+    n_sel from the frontier alone to past the table, out-of-range entries
+    where blocks hold no key."""
+    qf, k_pool, tables, counts, len_f, hk, page = _select_inputs(
+        d, [48, 19, 0], seed=d + n_sel)
+    got = ref.paged_select_pages_ref(_t(qf), _t(k_pool), tables, counts,
+                                     len_f, d=d, page=page, n_sel=n_sel)
+    want = _jax_select(qf, k_pool, tables, counts, len_f, d=d, hk=hk,
+                       page=page, n_sel=n_sel)
+    assert (tables >= k_pool.shape[0]).any() and (len_f == 0).any()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (6, min(n_sel, 6))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@given(st.integers(1, 8), st.lists(st.integers(0, 48), min_size=3,
+                                   max_size=3), st.integers(0, 10_000))
+@settings(max_examples=15, deadline=None)
+def test_paged_select_pages_ties_match_jax(n_sel, lengths, seed):
+    """Tie-heavy keys (every key of a page one of three words): the plain
+    fused select still equals JAX's, ties going to the lowest block."""
+    if jops is None:
+        pytest.skip("needs the JAX reference package")
+    qf, k_pool, tables, counts, len_f, hk, page = _select_inputs(
+        48, lengths, seed=seed, ties=True)
+    got = ref.paged_select_pages_ref(_t(qf), _t(k_pool), tables, counts,
+                                     len_f, d=48, page=page, n_sel=n_sel)
+    want = _jax_select(qf, k_pool, tables, counts, len_f, d=48, hk=hk,
+                       page=page, n_sel=n_sel)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_page_select_wrapper_rejects_bad_inputs():
+    """The fused kernel's wrapper checks what its C entry point assumes
+    before any launch: the pool's page size, one length a row, n_sel >= 1,
+    the bounds' shape, and CUDA tensors (on the CPU it raises; the ops
+    layer runs the plain version there)."""
+    qf, k_pool, tables, counts, len_f, _, page = _select_inputs(
+        64, [48, 19, 0], seed=3)
+    args = (_t(qf), _t(k_pool), tables, counts, len_f)
+    before = pscore.launches
+    for kw, match in ((dict(page=page + 1, n_sel=2), "page"),
+                      (dict(page=page, n_sel=0), "n_sel"),
+                      (dict(page=page, n_sel=2,
+                            scores_out=torch.empty(2, 2, dtype=torch.int32)),
+                       "scores_out"),
+                      (dict(page=page, n_sel=2), "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            pscore.paged_select_pages(*args, d=64, **kw)
+    with pytest.raises(ValueError, match="lengths"):
+        pscore.paged_select_pages(*args[:4], len_f[:2], d=64, page=page,
+                                  n_sel=2)
+    assert pscore.launches == before
+
+
 @pytest.mark.parametrize("page_topn", [1, 2, 3])
 def test_paged_sparse_plain_matches_jax(jax_ref, page_topn):
     b, h, hk, nb, page, d, dv, n_pages, lengths, nsel = SPARSE_CASE
@@ -600,6 +695,70 @@ def test_paged_sparse_cuda_matches_plain(cuda, page_topn):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", ["random", "ties"])
+@pytest.mark.parametrize("page", [8, 16, 48])
+@pytest.mark.parametrize("nb", [40, 255, 256])
+@pytest.mark.parametrize("d", [16, 48, 64, 128])
+def test_page_select_cuda_matches_plain(cuda, d, nb, page, keys):
+    """The fused bounds + selection + compaction kernel equals its plain
+    version exactly -- bounds (scores_out), tables, counts and logical ids --
+    at n_sel 1, 3, a row's resident blocks, nb - 1 and past nb, on rows of
+    length 0, a page multiple, the whole table and a ragged length, with
+    out-of-range table entries inside resident blocks too."""
+    lengths = [0, page * (nb // 2), nb * page, nb * page // 3 + 5]
+    qf, k_pool, tables, counts, len_f, hk, _ = _select_inputs(
+        d, lengths, seed=d + nb + page, ties=keys == "ties", nb=nb,
+        page=page, b=4, h=6)
+    n_pages = k_pool.shape[0]
+    tables[4, 5], tables[6, 0] = n_pages + 7, -4     # resident blocks
+    args = [x.to(cuda) for x in (_t(qf), _t(k_pool), tables, counts, len_f)]
+    want_scores = ref.paged_page_scores_ref(*args[:4], d=d)
+    resident = -(-lengths[3] // page)
+    for n_sel in (1, 3, resident, nb - 1, nb + 2):
+        want = ref.paged_select_pages_ref(*args, d=d, page=page, n_sel=n_sel)
+        scores = torch.full_like(want_scores, 7 * d)
+        before = pscore.launches
+        got = pscore.paged_select_pages(*args, d=d, page=page, n_sel=n_sel,
+                                        scores_out=scores)
+        torch.cuda.synchronize()
+        assert pscore.launches == before + 1
+        assert torch.equal(scores, want_scores), n_sel
+        for g, w in zip(got, want):
+            assert g.shape == (len(qf), min(n_sel, nb))
+            assert torch.equal(g, w), n_sel
+
+
+@pytest.mark.cuda
+def test_paged_sparse_cuda_selects_in_one_kernel(cuda):
+    """Between the row tables and K2, page-sparse decode on the card runs
+    one kernel, the fused select: no sort, gather or bounds-only kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    b, h, hk, nb, page, d, dv = 3, 6, 2, 40, 16, 64, 64
+    qb, k_pool, v_pool, bt, lens = _paged_inputs(
+        b, h, hk, nb, page, d, dv, 130, [611, 170, 9], seed=5)
+    args = [_t(qb), _t(k_pool), torch.from_numpy(v_pool).to(torch.bfloat16),
+            torch.from_numpy(bt), torch.from_numpy(lens)]
+    kw = dict(d=d, nsel=40, scale=0.125, page_topn=8)
+    want = ops.paged_decode_attention(*args[:4], lengths=args[4], **kw)
+    args = [a.to(cuda) for a in args]
+    ops.paged_decode_attention(*args[:4], lengths=args[4], **kw)  # warm-up
+    torch.cuda.synchronize()
+    before = (pscore.launches, pdec.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = ops.paged_decode_attention(*args[:4], lengths=args[4], **kw)
+        torch.cuda.synchronize()
+    assert (pscore.launches, pdec.launches) == (before[0] + 1, before[1] + 1)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("page_select_kernel" in n for n in names) == 1, names
+    assert not [n for n in names if "sort" in n.lower() or "gather" in
+                n.lower() or "page_score_kernel" in n], names
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+
 def _split_case(name, split):
     """Row tables and counts that put the split K2's edges to work, with
     split = its positions per split: lengths split-1, split and split+1; a
@@ -745,6 +904,24 @@ def test_hamming_int8_cuda_exact(cuda, d, shape):
     want = ref.hamming_score_ref(qb, kb, d)
     before = hs.launches
     got = hs.hamming_score(qb.to(cuda), kb.to(cuda), d, method="int8")
+    torch.cuda.synchronize()
+    assert hs.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 70, 130), (3, 129, 260), (1, 1, 1),
+                                   (2, 65, 131)])
+@pytest.mark.parametrize("d", [16, 48, 64, 128, 256])
+def test_hamming_xor_cuda_exact(cuda, d, shape):
+    """The xor method equals the plain version exactly: every word count
+    its per-W instantiations take, M, N off the 64 x 128 tile, and N % 4 of
+    0 (16-byte stores), 1, 2 and 3 (4-byte stores)."""
+    bt, m, n = shape
+    qb, kb = _t(_bits((bt, m, d), d)), _t(_bits((bt, n, d), d + 1))
+    want = ref.hamming_score_ref(qb, kb, d)
+    before = hs.launches
+    got = hs.hamming_score(qb.to(cuda), kb.to(cuda), d, method="xor")
     torch.cuda.synchronize()
     assert hs.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
