@@ -32,32 +32,44 @@ runs four phases; any failure exits non-zero before the result line.
    the card. Each bound prices a kind of operation at its own
    peak: integer and float32 work on the CUDA cores, K1's E.V (three bf16
    products a multiply-add) at the bf16 tensor-core rate, K5 int8 at the
-   int8 tensor-core rate.
+   int8 tensor-core rate. One more line times the full-precision
+   baseline's attention (``core.attention.standard_attention``, no
+   kernel of its own) against ``F.scaled_dot_product_attention`` at a
+   decode step and a 512-query prefill chunk; it is not a kernel record.
 3. Cross-device: smollm-135m widths at 2 layers in float32, the same
    seeded weights on the CPU (plain versions) and on the card (kernels):
    first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
    another order through two layers, where a key's sign bit can flip)
    and equal greedy tokens, on the paged cache, the dense cache and with
-   page-sparse decode.
+   page-sparse decode, and on the full-precision paged and dense caches.
+   Then, on the card, the CUDA-graph step against the eager step
+   (``Engine(eager=True)``): logits of a prefill + decode sequence and
+   greedy tokens equal bit for bit, binary and full precision, paged,
+   dense and page-sparse.
 4. The slice at full size: smollm-135m, all 30 layers, bf16, seeded
    random weights, prefill chunks of 512, 4 slots, 8 staggered requests
    with 512-3072-token prompts and 32 new tokens each, max_len 4096
    (top-N = 479), run four times: paged (16-token pages, 256-entry
    tables), dense cache, page-sparse with page_topn 255 (every resident
-   page kept) and page_topn 64; then `ops.hamming_scores` at the phase-2
-   shapes, each method on its own. Launch counts are zeroed just before
-   each run and read just after; every kernel of a run's path must run 30
-   times a step (a chunk for the prefill kernel, a decode step for the
-   decode and page-score kernels; an op call counts once, whatever CUDA
-   launches it makes). The dense and page_topn-255 tokens must equal the
-   paged run's; page_topn 64 must attend fewer pages, and a fifth run of
-   it with the unfused selection must attend the same pages and give the
-   same tokens (its launches are not counted).
+   page kept) and page_topn 64; the same four on the full-precision
+   baseline (``binary=False``); then `ops.hamming_scores` at the phase-2
+   shapes, each method on its own. Every step of a run replays one of
+   its engine's two CUDA graphs (prefill chunk, decode step), and each
+   engine must hold exactly 2. Launch counts are zeroed just before each
+   run and read just after, replays counted; every kernel of a run's path
+   must run 30 times a step (a chunk for the prefill kernel, a decode step
+   for the decode and page-score kernels; an op call counts once, whatever
+   CUDA launches it makes), and the full-precision runs launch none. The
+   dense and page_topn-255 tokens must equal the paged run's, on each
+   path; page_topn 64 must attend fewer pages. Two more binary runs are
+   not counted: page_topn 64 with the unfused selection must attend the
+   same pages and give the same tokens, and paged with the eager step
+   must give the same tokens as the graphed one.
 
 `--profile DIR` then profiles the prefill of one 3072-token prompt and
-decode windows of the paged, the dense and the page_topn-64 engine (the
-last unfused and fused in turn). Then the kernel record line and, last,
-the result line.
+decode windows of the paged, the dense, the full-precision paged and the
+page_topn-64 engine (the last unfused and fused in turn), all graphed.
+Then the kernel record line and, last, the result line.
 """
 from __future__ import annotations
 
@@ -155,7 +167,9 @@ def device_ms(fn, iters: int = 200) -> float:
 def unfused_select():
     """Page-sparse decode selects pages as the port did before K3 took the
     selection in: the bounds-only kernel, then ops.select_pages on the card
-    (eager sorts, gathers and casts). The launch count stays one a call."""
+    (eager sorts, gathers and casts). The launch count stays one a call.
+    A CUDA graph keeps the selection it was captured with: an engine must
+    capture its decode step inside this context to replay it unfused."""
     from repro_torch.kernels import binary_page_score as pscore
     from repro_torch.kernels import ops
     fused = pscore.paged_select_pages
@@ -426,6 +440,7 @@ def phase2() -> dict:
     records.update(_phase2_k3(gen))
     records.update(_phase2_k4(gen))
     records.update(_phase2_k5(gen))
+    _phase2_fp(gen)
     return records
 
 
@@ -633,14 +648,105 @@ def _phase2_k5(gen) -> dict:
                 host["int8"], library_ms=library_ms, name=K5_INT8)}
 
 
+def _phase2_fp(gen) -> None:
+    """The full-precision baseline's attention (standard_attention, the
+    port's counterpart of the JAX package's einsums: no kernel of its own)
+    against F.scaled_dot_product_attention with the same mask (additive,
+    -1e30 where masked, so idle rows are uniform in both), bf16 q/k/v at
+    the phase-4 shapes: a decode step of 4 slots over 4096-position rows,
+    and a 512-query chunk of slot 0 at offset 2560 with the other slots
+    idle. Both timed by device time (graph replay) and back to back; the
+    host time of one port call. Allclose at atol/rtol 2e-2 (bf16 output,
+    float32 against bf16 products)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.attention import standard_attention
+    cases = {"decode": (1, [3104, 1537, 600, 33], [3103, 1536, 599, 32]),
+             "prefill 512": (CHUNK, [3072, 0, 0, 0], [2560, 0, 0, 0])}
+    for name, (s, lens, offs) in cases.items():
+        q = torch.randn((B, H, s, DV), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, HK, T_MAX, DV), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        kv_len = torch.tensor(lens, device="cuda")
+        q_off = torch.tensor(offs, device="cuda")
+        kv_valid = torch.arange(T_MAX, device="cuda")[None] < kv_len[:, None]
+        pos = torch.arange(s, device="cuda")
+        mask = ((torch.arange(T_MAX, device="cuda")[None, None]
+                 <= (q_off[:, None] + pos[None])[..., None])
+                & kv_valid[:, None])[:, None]               # [B, 1, S, T]
+        bias = torch.where(mask, 0.0, -1e30).to(torch.bfloat16)
+
+        def port():
+            return standard_attention(q, k, v, scale=DV ** -0.5,
+                                      q_offset=q_off, kv_valid=kv_valid)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=DV ** -0.5, enable_gqa=True)
+
+        got, want = port(), sdpa()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+        iters = 200 if s == 1 else 20
+        log(f"phase 2: fp attention [{name}] (not a kernel) port "
+            f"{device_ms(port, iters):.4f} ms device / "
+            f"{cuda_ms(port, iters):.4f} ms back to back, SDPA "
+            f"{device_ms(sdpa, iters):.4f} / {cuda_ms(sdpa, iters):.4f} ms, "
+            f"max_abs_err {err:.3e}; port host {host_us(port):.1f} us a "
+            f"call")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same weights on the CPU and on the card
 # ---------------------------------------------------------------------------
 
-def _engine(cfg, model, scfg_kw, device, telemetry=None):
+def _engine(cfg, model, scfg_kw, device, telemetry=None, eager=False):
     from repro_torch.serve import Engine, ServeConfig
     return Engine(cfg, model, ServeConfig(**scfg_kw), telemetry=telemetry,
-                  device=device)
+                  device=device, eager=eager)
+
+
+def _graph_vs_eager(cfg, model, scfg, prompts) -> None:
+    """On the card, the CUDA-graph step against the eager step of one
+    engine configuration: the logits of two prefill chunks (one slot
+    each, the other idle) and three decode steps through the runners'
+    low-level steps, and greedy tokens through the Engine, equal bit for
+    bit."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2)
+    nb = scfg["max_len"] // scfg["page_size"]
+    bt = (np.arange(2 * nb, dtype=np.int32)[::-1].reshape(2, nb).copy()
+          if scfg.get("paged") else None)
+    chunk = scfg["prefill_chunk"]
+    steps = []
+    for slot, nv in ((0, chunk), (1, 41)):
+        tok = np.zeros((2, chunk), np.int32)
+        tok[slot, :nv] = rng.integers(0, cfg.vocab_size, nv)
+        steps.append(("prefill", (tok, np.zeros(2, np.int32),
+                                  np.arange(2) == slot,
+                                  np.where(np.arange(2) == slot, nv,
+                                           0).astype(np.int32), bt)))
+    for i in range(3):
+        steps.append(("decode", (
+            rng.integers(0, cfg.vocab_size, 2).astype(np.int32),
+            np.array([chunk + i, 41 + i], np.int32), np.ones(2, bool), bt)))
+    logits, tokens = [], []
+    for eager in (True, False):
+        runner = _engine(cfg, model, scfg, "cuda", eager=eager).runner
+        logits.append([
+            (runner.prefill_step if kind == "prefill" else
+             runner.decode_step)(*args).clone() for kind, args in steps])
+        check(runner.graph_count() == (0 if eager else 2),
+              runner.graph_count())
+        tokens.append(_engine(cfg, model, scfg, "cuda",
+                              eager=eager).generate(prompts, 8))
+    check(all(torch.equal(a, b) for a, b in zip(*logits)),
+          ("graph logits != eager logits", scfg))
+    check((tokens[0] == tokens[1]).all(), ("graph tokens != eager", scfg))
 
 
 def phase3() -> None:
@@ -665,27 +771,34 @@ def phase3() -> None:
     tables = {"paged": np.array([[2, 5, 0, 6], [1, 3, 7, -1]], np.int32),
               "dense": None}
     for kind, cache_kw in caches.items():
-        logits = []
-        for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
-            bt = tables[kind]
-            out = T.serve_step(
-                model, torch.from_numpy(tok).to(dev),
-                T.init_caches(cfg, device=dev, **cache_kw), n=16,
-                logits_mode="last",
-                block_tables=None if bt is None else
-                torch.from_numpy(bt).to(dev),
-                **{k: torch.from_numpy(v).to(dev) for k, v in args.items()})
-            logits.append(out.cpu())
-        diff = (logits[0] - logits[1]).abs().max().item()
-        torch.testing.assert_close(logits[1], logits[0], **CROSS_TOL)
-        log(f"phase 3: first-step logits ({kind} cache) cpu vs cuda "
-            f"max_abs_diff {diff:.3e}")
+        for binary in (True, False):
+            logits = []
+            for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+                bt = tables[kind]
+                out = T.serve_step(
+                    model, torch.from_numpy(tok).to(dev),
+                    T.init_caches(cfg, device=dev, binary=binary,
+                                  **cache_kw), n=16,
+                    logits_mode="last", binary=binary,
+                    block_tables=None if bt is None else
+                    torch.from_numpy(bt).to(dev),
+                    **{k: torch.from_numpy(v).to(dev)
+                       for k, v in args.items()})
+                logits.append(out.cpu())
+            diff = (logits[0] - logits[1]).abs().max().item()
+            torch.testing.assert_close(logits[1], logits[0], **CROSS_TOL)
+            log(f"phase 3: first-step logits ({kind} cache, "
+                f"{'binary' if binary else 'fp'}) cpu vs cuda "
+                f"max_abs_diff {diff:.3e}")
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (70, 130, 41)]
     scfg = dict(max_len=160, batch_slots=2, prefill_chunk=64, paged=True,
                 page_size=16)
-    for kind, kw in (("paged", {}), ("dense", dict(paged=False)),
-                     ("page_topn 3", dict(page_topn=3))):
+    paths = (("paged", {}), ("dense", dict(paged=False)),
+             ("page_topn 3", dict(page_topn=3)),
+             ("fp paged", dict(binary=False)),
+             ("fp dense", dict(binary=False, paged=False)))
+    for kind, kw in paths:
         outs = []
         for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
             outs.append(_engine(cfg, model, dict(scfg, **kw),
@@ -693,6 +806,12 @@ def phase3() -> None:
         check((outs[0] == outs[1]).all(), (kind, outs[0], outs[1]))
         log(f"phase 3: greedy tokens ({kind}) equal on cpu and cuda: "
             f"{outs[1].tolist()}")
+    for kind, kw in paths + (("fp page_topn 3",
+                              dict(binary=False, page_topn=3)),):
+        _graph_vs_eager(cfg, gpu_model, dict(scfg, **kw), prompts)
+        log(f"phase 3: CUDA graphs == eager step ({kind}): logits of 2 "
+            f"prefill chunks + 3 decode steps and greedy tokens, bit for "
+            f"bit")
 
 
 # ---------------------------------------------------------------------------
@@ -767,37 +886,50 @@ def phase4():
     log(f"phase 4: prompts {lens.tolist()}, {gen} new tokens each")
     base = dict(max_len=4096, batch_slots=4, prefill_chunk=512,
                 page_size=16)
-    # run -> (ServeConfig fields, the decode kernels its path launches)
+    # run -> (ServeConfig fields, the decode kernels its path launches);
+    # "fp_" runs serve the full-precision baseline, which launches none of
+    # the kernels
     paths = {"paged": (dict(paged=True), (pdec,)),
              "dense": (dict(paged=False), (dec,)),
              "page_topn_255": (dict(paged=True, page_topn=255),
                                (pdec, pscore)),
              "page_topn_64": (dict(paged=True, page_topn=64),
                               (pdec, pscore))}
-    runs, total, engines = {}, {}, {}
-    # the last run repeats page_topn 64 with the selection K3 replaced (the
-    # bounds-only kernel, then ops.select_pages): its pages attended and
-    # tokens must equal the fused run's; its launches are not counted
+    for name, (kw, _) in list(paths.items()):
+        paths[f"fp_{name}"] = (dict(kw, binary=False), ())
+    # two more binary runs, not counted in the kernel totals: page_topn 64
+    # with the selection K3 replaced (the bounds-only kernel, then
+    # ops.select_pages), whose pages attended and tokens must equal the
+    # fused run's; and paged with the eager step, whose tokens must equal
+    # the graphed run's
+    extra = ("page_topn_64_unfused", "paged_eager")
     paths["page_topn_64_unfused"] = paths["page_topn_64"]
+    paths["paged_eager"] = paths["paged"]
+    runs, total, engines = {}, {}, {}
     for name, (kw, decoders) in paths.items():
+        eager = name == "paged_eager"
         eng = _engine(cfg, model, dict(base, **kw), "cuda",
-                      telemetry=Telemetry())
+                      telemetry=Telemetry(), eager=eager)
         check(eng.n == NSEL, eng.n)
         with (unfused_select() if name.endswith("_unfused")
               else contextlib.nullcontext()):
             r = _serve_run(eng, prompts, gen)
         st = r["stats"]
+        check(eng.runner.graph_count() == (0 if eager else 2),
+              (name, "graphs", eng.runner.graph_count()))
         want = {k: 0 for k in r["counts"]}
-        want[pre.NAME] = cfg.n_layers * st["prefill_chunks"]
+        if eng.scfg.binary:
+            want[pre.NAME] = cfg.n_layers * st["prefill_chunks"]
         for mod in decoders:
             want[mod.NAME] = cfg.n_layers * st["decode_steps"]
         check(r["counts"] == want and st["decode_steps"] > 0,
               (name, r["counts"], want))
-        if not name.endswith("_unfused"):
+        if name not in extra:
             for k, v in r["counts"].items():
                 total[k] = total.get(k, 0) + v
         log(f"phase 4 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
-            f"prefill chunks, {st['decode_steps']} decode steps, launches "
+            f"prefill chunks, {st['decode_steps']} decode steps, "
+            f"{eng.runner.graph_count()} step graphs, launches "
             f"{r['counts']}, decode pages attended "
             f"{st['decode_pages_touched']}, decode KV bytes "
             f"{st['decode_hbm_bytes']}, tokens sha1 {r['digest']}")
@@ -809,26 +941,37 @@ def phase4():
             f"{np.percentile(r['itl'], 95):.2f} ms, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         runs[name] = r
-        if name in ("paged", "dense", "page_topn_64"):
+        if name in ("paged", "dense", "page_topn_64", "fp_paged",
+                    "page_topn_64_unfused", "paged_eager"):
             engines[name] = eng
-    for name in ("dense", "page_topn_255"):
-        same = all(np.array_equal(a, b) for a, b in
-                   zip(runs[name]["tokens"], runs["paged"]["tokens"]))
-        check(same, f"{name} tokens differ from the paged run's")
     touched = {k: r["stats"]["decode_pages_touched"] for k, r in runs.items()}
-    check(touched["page_topn_255"] == touched["paged"], touched)
-    check(touched["page_topn_64"] < touched["paged"], touched)
+    for pre_ in ("", "fp_"):
+        for name in ("dense", "page_topn_255"):
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(runs[pre_ + name]["tokens"],
+                           runs[pre_ + "paged"]["tokens"]))
+            check(same, f"{pre_}{name} tokens differ from the "
+                        f"{pre_}paged run's")
+        check(touched[pre_ + "page_topn_255"] == touched[pre_ + "paged"],
+              touched)
+        check(touched[pre_ + "page_topn_64"] < touched[pre_ + "paged"],
+              touched)
     check(touched["page_topn_64_unfused"] == touched["page_topn_64"]
           and runs["page_topn_64_unfused"]["digest"]
           == runs["page_topn_64"]["digest"],
           "page_topn 64: the fused selection differs from the unfused one")
-    agree = np.mean([np.mean(a == b) for a, b in
-                     zip(runs["page_topn_64"]["tokens"],
-                         runs["paged"]["tokens"])])
-    log(f"phase 4: dense and page_topn 255 tokens equal the paged run's; "
-        f"page_topn 64 attends {touched['page_topn_64']} of "
-        f"{touched['paged']} pages, {agree:.3f} of its tokens agree; its "
-        f"pages and tokens equal the unfused selection's")
+    check(runs["paged_eager"]["digest"] == runs["paged"]["digest"],
+          "paged: the graphed run's tokens differ from the eager run's")
+    for pre_ in ("", "fp_"):
+        agree = np.mean([np.mean(a == b) for a, b in
+                         zip(runs[pre_ + "page_topn_64"]["tokens"],
+                             runs[pre_ + "paged"]["tokens"])])
+        log(f"phase 4: {pre_}dense and {pre_}page_topn 255 tokens equal the "
+            f"{pre_}paged run's; {pre_}page_topn 64 attends "
+            f"{touched[pre_ + 'page_topn_64']} of {touched[pre_ + 'paged']} "
+            f"pages, {agree:.3f} of its tokens agree")
+    log("phase 4: page_topn 64's pages and tokens equal the unfused "
+        "selection's; the graphed paged run's tokens equal the eager run's")
 
     # ops.hamming_scores, the public entry point of K5, at the phase-2
     # shapes on packed bits of seeded Gaussian queries and keys
@@ -855,18 +998,23 @@ def phase4():
 
 
 def profile_windows(engines: dict, out_dir: str) -> None:
-    """Device time by kernel in windows of the full-size engines, each run
-    four times -- three timed on the host clock, then once under
-    torch.profiler: the prefill of one 3072-token prompt into the idle
-    paged engine (6 chunks in one step: the budget lifts when no slot
+    """Device time by kernel in windows of the full-size engines of phase
+    4, each run four times -- three timed on the host clock, then once
+    under torch.profiler: the prefill of one 3072-token prompt into the
+    idle paged engine (6 chunks in one step: the budget lifts when no slot
     decodes), then 8 decode steps of 4 slots at ~3.1k-token contexts on the
-    paged engine (K2), the dense-cache engine (K4) and the page_topn-64
-    engine (K3 + K2), the last four times in turn with the selection
-    unfused (the bounds-only kernel, then ops.select_pages) and fused:
-    unfused, fused, fused, unfused. Busy share = device kernel time under
-    the profiler / the median host wall of the unprofiled runs; the caching
-    allocator's cudaMalloc calls in those runs are counted. Writes each
-    window's op table to `out_dir`."""
+    paged engine (K2), the dense-cache engine (K4), the full-precision
+    paged engine (no kernel of its own) and the page_topn-64 engines (K3 +
+    K2), the engine captured with the unfused selection (the bounds-only
+    kernel, then ops.select_pages) and the fused one in turn: unfused,
+    fused, fused, unfused. Every step of those replays the engine's CUDA
+    graphs; the prefill and the paged decode window run again on the
+    eager engine. Busy share = device kernel time under the profiler / the
+    median host wall of the unprofiled runs; the caching allocator's
+    cudaMalloc calls in those runs are counted, and the engine's telemetry
+    splits the host wall into schedule, execute (staging, the replay or the
+    eager ops, the logits copy that waits for the device, and host
+    sampling) and commit. Writes each window's op table to `out_dir`."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -874,16 +1022,24 @@ def profile_windows(engines: dict, out_dir: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(1)
 
+    vocab = engines["paged"].cfg.vocab_size
+
     def prompt():
-        return rng.integers(0, eng.cfg.vocab_size, 3072).astype(np.int32)
+        return rng.integers(0, vocab, 3072).astype(np.int32)
 
     def steps(eng, n):
+        """Host wall (ms) of n steps, and the telemetry's schedule /
+        execute / commit ms summed over them."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in eng.telemetry.recorder.events()
+              if e["kind"] == "step"][-n:]
+        return wall, {k: sum(e["timings"][k] for e in ev) * 1e3
+                      for k in ("schedule", "execute", "commit")}
 
     def mallocs():
         st = torch.cuda.memory_stats()
@@ -899,11 +1055,13 @@ def profile_windows(engines: dict, out_dir: str) -> None:
             eng.step()
 
     def window(name, eng, n, setup, decode="K2/K4"):
-        walls, m0 = [], mallocs()
+        runs, m0 = [], mallocs()
         for _ in range(3):
             setup()
-            walls.append(steps(eng, n))
-        wall, n_malloc = sorted(walls)[1], mallocs() - m0
+            runs.append(steps(eng, n))
+        walls = [w for w, _ in runs]
+        wall, phases = sorted(runs, key=lambda r: r[0])[1]
+        n_malloc = mallocs() - m0
         setup()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -939,26 +1097,27 @@ def profile_windows(engines: dict, out_dir: str) -> None:
                                               row_limit=80))
         log(f"profile {name}: {n} steps, host wall {wall / n:.3f} ms a step "
             f"(runs {', '.join(f'{w:.3f}' for w in walls)} ms; {n_malloc} "
-            f"cudaMalloc calls), device {busy / n:.3f} ms a step, busy "
+            f"cudaMalloc calls; telemetry a step: " + ", ".join(
+                f"{k} {v / n:.3f} ms" for k, v in phases.items())
+            + f"), device {busy / n:.3f} ms a step, busy "
             f"{busy / wall:.3f}; per step: " + "; ".join(
                 f"{k} {v / n:.3f} ms" for k, v in
                 sorted(groups.items(), key=lambda kv: -kv[1])))
 
-    eng = engines["paged"]
-    window("prefill_3072", eng, 1,
-           lambda: eng.submit(prompt(), max_new_tokens=1))
-    for name, eng in engines.items():
-        decode = "K4" if name == "dense" else "K2"
-        if name != "page_topn_64":
-            fill(eng)
-            window(f"decode_4x3k_{name}", eng, 8, lambda: None, decode)
-            continue
-        for i, unfused in enumerate((True, False, False, True)):
-            fill(eng)
-            with (unfused_select() if unfused
-                  else contextlib.nullcontext()):
-                window(f"decode_4x3k_{name}{'_unfused' if unfused else ''}"
-                       f"_{i}", eng, 8, lambda: None, decode)
+    for name in ("paged", "paged_eager"):      # idle after phase 4
+        eng = engines[name]
+        window(f"prefill_3072{name[5:]}", eng, 1,
+               lambda: eng.submit(prompt(), max_new_tokens=1))
+    for name in ("paged", "paged_eager", "dense", "fp_paged"):
+        eng = engines[name]
+        fill(eng)
+        window(f"decode_4x3k_{name}", eng, 8, lambda: None,
+               {"dense": "K4", "fp_paged": "fp"}.get(name, "K2"))
+    for i, name in enumerate(("page_topn_64_unfused", "page_topn_64",
+                              "page_topn_64", "page_topn_64_unfused")):
+        eng = engines[name]
+        fill(eng)
+        window(f"decode_4x3k_{name}_{i}", eng, 8, lambda: None, "K2")
 
 
 def main() -> int:

@@ -1,1 +1,2 @@
-"""HAD core math: bit packing, Hamming scores, histogram top-N."""
+"""HAD core math: bit packing, Hamming scores, histogram top-N, and the
+full-precision baseline attention."""

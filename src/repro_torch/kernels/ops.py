@@ -34,9 +34,17 @@ def launch_counts() -> dict[str, int]:
     return {k.NAME: k.launches for k in _KERNELS}
 
 
-def reset_launch_counts() -> None:
+def reset_launch_counts(counts: dict[str, int] | None = None) -> None:
+    """Set every kernel's launch count to 0, or to `counts` (by name)."""
     for k in _KERNELS:
-        k.launches = 0
+        k.launches = 0 if counts is None else counts[k.NAME]
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add `counts` (by name) to the launch counts: the launches a CUDA
+    graph replay makes, which no wrapper counts."""
+    for k in _KERNELS:
+        k.launches += counts.get(k.NAME, 0)
 
 
 def _per_slot(x, b: int, device) -> torch.Tensor:

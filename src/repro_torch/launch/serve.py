@@ -7,9 +7,11 @@ over the packed-bit K cache, with staggered mixed-length requests.
       --reduced --page-topn 2 --device cpu --prompt-len 16 --gen 4
 
 The cache is dense (per-slot rows) unless --paged, --prefix-cache or
---page-topn asks for the paged pool. Weights are random, drawn from
---seed. This slice serves the binary path only; the JAX launcher's
---baseline, --swap-pages, --async and --mesh-model options wait for later
+--page-topn asks for the paged pool. Attention is HAD over packed K bits
+unless --baseline asks for full precision. Weights are random, drawn from
+--seed. Each step runs as a replay of one of the runner's two CUDA graphs
+(prefill chunk, decode step); the count is printed at exit. The JAX
+launcher's --swap-pages, --async and --mesh-model options wait for later
 slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -32,6 +34,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernel versions)")
+    ap.add_argument("--baseline", action="store_true",
+                    help="full-precision attention instead of HAD")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache (block tables + shared page pool); "
                          "the default is the dense cache")
@@ -55,7 +59,8 @@ def main(argv=None):
     ap.add_argument("--page-topn", type=int, default=0,
                     help="two-phase page-sparse decode (implies --paged): "
                          "attend only each row's top-N pages by their "
-                         "popcount score bound, plus the frontier page")
+                         "popcount score bound (--baseline: each slot's by "
+                         "their max logit), plus the frontier page")
     ap.add_argument("--policy", choices=("fcfs", "shortest-prompt"),
                     default="fcfs")
     ap.add_argument("--victim-policy", choices=("youngest", "longest-idle"),
@@ -84,7 +89,8 @@ def main(argv=None):
     telemetry = Telemetry(fence=True) if args.metrics else None
     eng = Engine(cfg, model, ServeConfig(
         max_len=max_len, batch_slots=args.slots,
-        prefill_chunk=args.prefill_chunk, binary=True, paged=paged,
+        prefill_chunk=args.prefill_chunk, binary=not args.baseline,
+        paged=paged,
         page_size=args.page_size, n_pages=args.n_pages or None,
         policy=args.policy, prefix_cache=args.prefix_cache,
         page_topn=args.page_topn or None,
@@ -125,6 +131,8 @@ def main(argv=None):
     print(f"wall {dt:.2f}s  decode_steps={eng.stats['decode_steps']} "
           f"prefill_chunks={eng.stats['prefill_chunks']} "
           f"({gen_tok / dt:.1f} generated tok/s)")
+    print(f"attention: {'full precision' if args.baseline else 'HAD'}, "
+          f"step graphs: {eng.runner.graph_count()}")
     if paged:
         a = eng.allocator
         print(f"kv pool: peak {a.peak_in_use}/{a.n_pages} pages x "

@@ -1,8 +1,8 @@
-"""GQA attention block, serving half, binary path (torch twin of the
-serving code in ``repro.models.attention_block``).
+"""GQA attention block, serving half (torch twin of the serving code in
+``repro.models.attention_block``).
 
-Keys and queries are binarized after RoPE and packed to 32-bit words. Two
-caches, as in the JAX package:
+On the binary (HAD) path keys and queries are binarized after RoPE and
+packed to 32-bit words. Two caches, as in the JAX package:
 
   * paged -- the K cache is a shared pool of bit-plane pages and V a pool
     of pages in the model dtype, addressed through per-slot block tables.
@@ -13,11 +13,15 @@ caches, as in the JAX package:
     [B, Hk, max_len + 1, Dh] rows. Prefill runs the prefill kernel over the
     cache rows; decode runs the contiguous-cache decode kernel.
 
-All go through ``repro_torch.kernels.ops``, which dispatches by tensor
-device. Caches are updated IN PLACE (index_put_), unlike the JAX package's
-functional updates, so a step never copies a cache. Writes that must be
-dropped go to a trash page (paged) or a trash position (dense) at the end
-of the cache instead, which no read ever treats as valid.
+The binary path goes through ``repro_torch.kernels.ops``, which dispatches
+by tensor device. The full-precision baseline (``binary=False``) keeps K
+and V in the model dtype, in the same two layouts, and runs
+``core.attention.standard_attention`` over gathered rows: the JAX package
+has no kernel there either. Caches are updated IN PLACE (index_put_),
+unlike the JAX package's functional updates, so a step never copies a
+cache. Writes that must be dropped go to a trash page (paged) or a trash
+position (dense) at the end of the cache instead, which no read ever
+treats as valid.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ import torch
 from torch import nn
 
 from repro_torch.core import hamming
+from repro_torch.core.attention import standard_attention
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import top_blocks
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -64,18 +70,22 @@ class Attention(nn.Module):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> dict:
-    """One layer's dense cache: k_bits [B, Hk, W, max_len+1] int32
-    bit-planes and v [B, Hk, max_len+1, Dh] in the model dtype. Position
+               binary: bool = True, device=None) -> dict:
+    """One layer's dense cache: binary, k_bits [B, Hk, W, max_len+1] int32
+    bit-planes; full precision, k [B, Hk, max_len+1, Dh]; and v
+    [B, Hk, max_len+1, Dh], all but k_bits in the model dtype. Position
     ``max_len`` is a trash position that absorbs dropped writes; no length
     ever reaches it, and positions [0, max_len) match the JAX cache."""
     hk, dh = cfg.n_kv_heads, cfg.dh
+    rows = torch.zeros((batch, hk, max_len + 1, dh), dtype=cfg.dtype,
+                       device=device)
+    if not binary:
+        return {"k": rows, "v": rows.clone()}
     w = hamming.packed_words(dh)
     return {
         "k_bits": torch.zeros((batch, hk, w, max_len + 1), dtype=torch.int32,
                               device=device),
-        "v": torch.zeros((batch, hk, max_len + 1, dh), dtype=cfg.dtype,
-                         device=device),
+        "v": rows,
     }
 
 
@@ -119,19 +129,32 @@ def _update_binary_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
     _cache_write(cache["v"], v, pos, axis=2, n_valid=n_valid, active=active)
 
 
+def _update_std_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                      pos: torch.Tensor, n_valid: torch.Tensor | None = None,
+                      active: torch.Tensor | None = None) -> None:
+    """Full precision: k, v [B, Hk, S, Dh] written into the dense cache in
+    place."""
+    _cache_write(cache["k"], k, pos, axis=2, n_valid=n_valid, active=active)
+    _cache_write(cache["v"], v, pos, axis=2, n_valid=n_valid, active=active)
+
+
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
-                     device=None) -> dict:
-    """One layer's page pools: k_bits [n_pages+1, Hk, W, page] int32
-    bit-planes and v [n_pages+1, Hk, page, Dh] in the model dtype. Page
+                     binary: bool = True, device=None) -> dict:
+    """One layer's page pools: binary, k_bits [n_pages+1, Hk, W, page]
+    int32 bit-planes; full precision, k [n_pages+1, Hk, page, Dh]; and v
+    [n_pages+1, Hk, page, Dh], all but k_bits in the model dtype. Page
     ``n_pages`` is a trash page that absorbs dropped writes; no block
     table ever names it, and pages [0, n_pages) match the JAX pools."""
     hk, dh = cfg.n_kv_heads, cfg.dh
+    pages = torch.zeros((n_pages + 1, hk, page_size, dh), dtype=cfg.dtype,
+                        device=device)
+    if not binary:
+        return {"k": pages, "v": pages.clone()}
     w = hamming.packed_words(dh)
     return {
         "k_bits": torch.zeros((n_pages + 1, hk, w, page_size),
                               dtype=torch.int32, device=device),
-        "v": torch.zeros((n_pages + 1, hk, page_size, dh), dtype=cfg.dtype,
-                         device=device),
+        "v": pages,
     }
 
 
@@ -196,6 +219,43 @@ def _update_binary_cache_paged(cache: dict, k: torch.Tensor, v: torch.Tensor,
                        n_valid=n_valid, active=active)
 
 
+def _update_std_cache_paged(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                            pos: torch.Tensor, bt: torch.Tensor,
+                            n_valid: torch.Tensor | None = None,
+                            active: torch.Tensor | None = None) -> None:
+    """Full precision: k, v [B, Hk, S, Dh] scattered into the pools in
+    place."""
+    for name, new in (("k", k), ("v", v)):
+        _paged_cache_write(cache[name], new.transpose(1, 2), pos, bt,
+                           offset_axis=2, n_valid=n_valid, active=active)
+
+
+def _page_topn_keep(page_scores: torch.Tensor, kv_len: torch.Tensor, *,
+                    page: int, n_sel: int) -> torch.Tensor:
+    """Top-N page selection as a per-slot token mask (the full-precision
+    page-sparse decode).
+
+    page_scores [B, nb] per-page scores (higher = keep); kv_len [B] valid
+    context lengths. Returns [B, nb*page] bool keeping the tokens of each
+    slot's top-n_sel pages: the frontier (tail) page always among them,
+    pages past the frontier never ranked in, ties to the lowest block (as
+    ``lax.top_k``: a stable descending sort, never ``torch.topk``). Applied
+    as a kv_valid restriction on the gathered rows, so at n_sel >= resident
+    pages the result is bit-identical to the dense walk.
+    """
+    b, nb = page_scores.shape
+    blocks = torch.arange(nb, device=page_scores.device)
+    kv_len = kv_len.to(torch.int64)
+    frontier = (kv_len - 1).clamp_min(0) // page
+    s = torch.where(blocks[None] * page < kv_len[:, None],
+                    page_scores.to(torch.float32), -torch.inf)
+    s = torch.where(blocks[None] == frontier[:, None], torch.inf, s)
+    idx = top_blocks(s, min(n_sel, nb))
+    keep = torch.zeros((b, nb), dtype=torch.bool, device=s.device)
+    keep.scatter_(1, idx, True)
+    return keep.repeat_interleave(page, dim=1)
+
+
 def _out(p: Attention, ctx: torch.Tensor) -> torch.Tensor:
     b, h, s, dh = ctx.shape
     y = ctx.transpose(1, 2).reshape(b, s, h * dh)
@@ -207,15 +267,17 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                block_tables: torch.Tensor | None = None,
                n_valid: torch.Tensor | None = None,
                active: torch.Tensor | None = None,
-               page_topn: int | None = None) -> torch.Tensor:
-    """Prefill chunk (S > 1) or decode step (S == 1), binary path.
+               page_topn: int | None = None,
+               binary: bool = True) -> torch.Tensor:
+    """Prefill chunk (S > 1) or decode step (S == 1).
 
     x [B, S, D]; pos [B] per-slot position of x[:, 0]; block_tables
     [B, nb] raw table of a paged cache, or None for the dense cache;
     n_valid [B] real tokens per row of a padded chunk (the valid cache
     length becomes pos + n_valid); active [B] rows whose writes land;
     page_topn: page-sparse decode over the paged cache (decode steps
-    only). Updates `cache` in place and returns y [B, S, D].
+    only); binary: the HAD path (False: the full-precision baseline).
+    Updates `cache` in place and returns y [B, S, D].
     """
     b, s, _ = x.shape
     dh, h, hk = cfg.dh, cfg.n_heads, cfg.n_kv_heads
@@ -227,6 +289,11 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
         q = common.apply_rope(q, q_pos, theta=cfg.rope_theta)
         k = common.apply_rope(k, q_pos, theta=cfg.rope_theta)
     kv_len = pos + (s if n_valid is None else n_valid)
+    if not binary:
+        return _out(p, _attn_std(q, k, v, cfg=cfg, cache=cache, pos=pos,
+                                 kv_len=kv_len, block_tables=block_tables,
+                                 n_valid=n_valid, active=active,
+                                 page_topn=page_topn).to(x.dtype))
     qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
     if block_tables is None:
         _update_binary_cache(cache, k, v, pos, n_valid=n_valid,
@@ -259,3 +326,52 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
             scale=p.scale, kv_length=kv_len, q_offset=pos, q_length=n_valid,
             causal=cfg.causal)
     return _out(p, y.to(x.dtype))
+
+
+def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              cfg: ModelConfig, cache: dict, pos: torch.Tensor,
+              kv_len: torch.Tensor, block_tables: torch.Tensor | None,
+              n_valid: torch.Tensor | None, active: torch.Tensor | None,
+              page_topn: int | None) -> torch.Tensor:
+    """The full-precision branch of `attn_serve` (JAX
+    ``attn_serve(binary=False)``): write the new K/V, gather the rows
+    (paged) or take the dense cache, mask past each slot's length and run
+    ``standard_attention`` at scale dh^-0.5. Returns [B, H, S, Dh].
+
+    The dense cache is read as [..., :max_len, :], made contiguous, so that
+    it reduces over the same shapes as the paged rows (nb * page
+    positions): when max_len % page == 0 the two are bit-identical.
+
+    Page-sparse decode (paged, S == 1, page_topn) scores each page by its
+    exact max QK logit over kv heads, grouped heads and in-page positions,
+    one score per SLOT, and keeps the `_page_topn_keep` pages as a kv_valid
+    restriction (no compacted table).
+    """
+    b, _, s, dh = q.shape
+    if block_tables is None:
+        _update_std_cache(cache, k, v, pos, n_valid=n_valid, active=active)
+        t_max = cache["v"].shape[2] - 1                    # less the trash
+        k_rows = cache["k"][:, :, :t_max].contiguous()
+        v_rows = cache["v"][:, :, :t_max].contiguous()
+    else:
+        _update_std_cache_paged(cache, k, v, pos, block_tables,
+                                n_valid=n_valid, active=active)
+        bt = block_tables.clamp_min(0)
+        k_rows = gather_pages(cache["k"], bt, 2)           # [B, Hk, T, Dh]
+        v_rows = gather_pages(cache["v"], bt, 2)
+        t_max = k_rows.shape[2]
+    kv_valid = (torch.arange(t_max, device=q.device)[None, :]
+                < kv_len.to(torch.int64)[:, None])          # [B, T]
+    if block_tables is not None and s == 1 and page_topn is not None:
+        hk = cfg.n_kv_heads
+        page = cache["v"].shape[2]
+        qg = q[:, :, 0].reshape(b, hk, -1, dh).to(torch.float32)
+        logits = torch.einsum("bkgd,bktd->bkgt", qg,
+                              k_rows.to(torch.float32))
+        logits = torch.where(kv_valid[:, None, None], logits, -torch.inf)
+        sc = logits.reshape(b, -1, t_max // page, page).amax(dim=(1, 3))
+        kv_valid = kv_valid & _page_topn_keep(sc, kv_len, page=page,
+                                              n_sel=page_topn)
+    return standard_attention(q, k_rows, v_rows, scale=dh ** -0.5,
+                              causal=cfg.causal, q_offset=pos,
+                              kv_valid=kv_valid)

@@ -7,8 +7,8 @@ package's leading ``n_groups`` axis unstacked into a list of layers; the
 JAX ``lax.scan`` over groups is a Python loop here.
 
 This slice serves dense decoders whose layer pattern is all "A" (e.g.
-smollm-135m) on the binary path, over the paged or the dense cache; other
-families raise.
+smollm-135m) on the binary path or the full-precision baseline, over the
+paged or the dense cache; other families raise.
 """
 from __future__ import annotations
 
@@ -118,14 +118,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def init_caches(cfg: ModelConfig, *, paged: bool, batch: int = 0,
                 max_len: int = 0, n_pages: int = 0, page_size: int = 16,
-                device=None) -> list[dict]:
+                binary: bool = True, device=None) -> list[dict]:
     """One cache dict per layer: page pools when `paged` (see
     attention_block.init_paged_cache; n_pages, page_size), else dense
-    per-slot caches (attention_block.init_cache; batch, max_len)."""
+    per-slot caches (attention_block.init_cache; batch, max_len); packed
+    K bits when `binary`, else full-precision K."""
     if paged:
-        return [AB.init_paged_cache(cfg, n_pages, page_size, device=device)
+        return [AB.init_paged_cache(cfg, n_pages, page_size, binary=binary,
+                                    device=device)
                 for _ in range(cfg.n_layers)]
-    return [AB.init_cache(cfg, batch, max_len, device=device)
+    return [AB.init_cache(cfg, batch, max_len, binary=binary, device=device)
             for _ in range(cfg.n_layers)]
 
 
@@ -136,6 +138,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                active: torch.Tensor | None = None,
                n_valid: torch.Tensor | None = None,
                page_topn: int | None = None,
+               binary: bool = True,
                logits_mode: str = "all") -> torch.Tensor:
     """Prefill (tokens [B, S>1]) or decode (tokens [B, 1]) against the
     caches, which are updated in place.
@@ -144,7 +147,9 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     for paged caches, None for dense ones; active [B] bool rows whose cache
     writes land (others ride along and produce garbage logits); n_valid
     [B] real tokens per row of a padded chunk; page_topn: page-sparse
-    decode over paged caches (ignored by prefill chunks).
+    decode over paged caches (ignored by prefill chunks); binary: the HAD
+    path over packed K bits, or (False) the full-precision baseline over
+    caches made with init_caches(binary=False).
     logits_mode="last" returns each row's logits at its last valid
     position only. Returns float32 logits [B, S or 1, padded_vocab].
     """
@@ -156,7 +161,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
         x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=cache, pos=pos,
                               n=n, block_tables=block_tables,
                               n_valid=n_valid, active=active,
-                              page_topn=page_topn)
+                              page_topn=page_topn, binary=binary)
         if cfg.d_ff > 0:
             h2 = common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps)
             x = x + common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,

@@ -10,11 +10,13 @@ A thin facade over the scheduler/runner split:
     sampled tokens.
   * `Engine.step()` is exactly `commit(plan, execute(schedule()))`.
 
-This slice serves `ServeConfig(binary=True)` over the paged cache (with
-recompute preemption, `prefix_cache` and page-sparse decode, `page_topn`)
-or the dense cache (`paged=False`). Everything else raises
-NotImplementedError when the engine builds its runner; see ROADMAP.md.
-The engine runs on the card unless the caller asks for the CPU.
+This slice serves the binary path and the full-precision baseline
+(`ServeConfig(binary=False)`) over the paged cache (with recompute
+preemption, `prefix_cache` and page-sparse decode, `page_topn`) or the
+dense cache (`paged=False`). Everything else raises NotImplementedError
+when the engine builds its runner; see ROADMAP.md. The engine runs on the
+card unless the caller asks for the CPU, each step as a CUDA graph replay
+unless it asks for the eager step (`eager=True`).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ __all__ = ["Engine", "FinishedRequest", "Request", "RequestMetrics",
 class Engine:
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  scfg: ServeConfig, telemetry: Telemetry | None = None, *,
-                 device="cuda"):
+                 device="cuda", eager: bool = False):
         self.cfg = cfg
         self.scfg = scfg
         self.telemetry = telemetry
@@ -45,7 +47,8 @@ class Engine:
             state_layers=0)
         self.scheduler.telemetry = telemetry
         self.runner = ModelRunner(cfg, model, scfg,
-                                  stats=self.scheduler.stats, device=device)
+                                  stats=self.scheduler.stats, device=device,
+                                  eager=eager)
         self.runner.telemetry = telemetry
         self.n = self.runner.n
 

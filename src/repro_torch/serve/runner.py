@@ -18,17 +18,27 @@ Execution order within one plan (as in the JAX runner):
 
 `execute(plan)` is `wait(execute_async(plan))`: the decode logits stay on
 the device until `wait()` copies them to the host and samples.
+
+Each step runs as a replay of one of at most two CUDA graphs per runner,
+one for the padded prefill chunk and one for the decode step (the
+counterpart of the JAX runner's one jit trace each): every plan array of
+a step sits in one static device buffer, filled from a host staging
+buffer by one copy, and the graph is captured at the kind's first use.
+`ModelRunner(eager=True)` runs the same step op by op instead, to compare
+the two; nothing falls back to it.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core import hamming
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import pages_needed
@@ -53,7 +63,6 @@ def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     this slice of the port does not serve."""
     T.check_supported(cfg)
     missing = [
-        (not scfg.binary, "the full-precision baseline (binary=False)"),
         (scfg.swap_pages > 0, "swap-out preemption (swap_pages > 0)"),
         (scfg.mesh is not None, "tensor-parallel serving (mesh)"),
     ]
@@ -92,15 +101,77 @@ class _PendingStep:
     tokens are final, decode logits are still on the device."""
     results: dict[int, list[int]]
     entries: list                      # decode entries pending sampling
-    logits: Any = None                 # un-synced decode logits, or None
+    # un-synced decode logits, or None. Under graphs this is the decode
+    # graph's static output, valid until the next replay of either graph
+    # (they share one memory pool): pipelined serving, which dispatches
+    # the next plan before this wait(), must copy it out first.
+    logits: Any = None
+
+
+class _StepInputs:
+    """The static inputs of one step kind: every plan array of the step
+    (tokens [B, S], pos, active and n_valid [B], block tables [B, nb]) in
+    one int32 device buffer, filled from one host staging buffer (pinned
+    on the card) by one copy a step. The step reads views of the device
+    buffer, so a captured graph sees each new plan at the same addresses."""
+
+    def __init__(self, shapes: dict[str, tuple[int, ...]], device):
+        sizes = [math.prod(shape) for shape in shapes.values()]
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(sum(sizes), dtype=torch.int32,
+                                pin_memory=cuda)
+        self.dev = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
+        # recorded after each copy: the staging buffer may be rewritten
+        # once the copy that reads it has run
+        self._copied = torch.cuda.Event() if cuda else None
+        self.host_views, self.views = {}, {}
+        off = 0
+        for (name, shape), size in zip(shapes.items(), sizes):
+            self.host_views[name] = self.host[off:off + size].numpy() \
+                .reshape(shape)
+            self.views[name] = self.dev[off:off + size].view(shape)
+            off += size
+
+    def stage(self, **arrays) -> None:
+        """Copy one step's plan arrays (numpy, by field name) to the
+        device buffer."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for name, arr in arrays.items():
+            self.host_views[name][...] = arr
+        self.dev.copy_(self.host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+    def stage_null(self) -> None:
+        """The null plan: every row inactive, n_valid 0, every table entry
+        -1, so every cache write of a step lands in the trash page or
+        position."""
+        self.stage(**{name: -1 if name == "tables" else 0
+                      for name in self.views})
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A step kind's captured graph: its static logits output, and the
+    kernel launches (by kernel name) that one replay makes. On the CPU,
+    which has no graphs, `graph` is None and the step runs eagerly on the
+    static buffers."""
+    graph: Any
+    logits: torch.Tensor | None
+    launches: dict[str, int]
 
 
 class ModelRunner:
     """Device-state owner and plan executor for one serving engine."""
 
     def __init__(self, cfg: ModelConfig, model: T.Transformer,
-                 scfg: ServeConfig, stats: dict, *, device="cuda"):
+                 scfg: ServeConfig, stats: dict, *, device="cuda",
+                 eager: bool = False):
+        """eager=True runs every step op by op on the static buffers,
+        capturing no graph: the comparison that pins graphs == eager."""
         self.device = resolve_device(device)
+        self.eager = eager
         validate_serve_features(cfg.layer_pattern, scfg)
         check_serve_supported(cfg, scfg)
         self.cfg = cfg
@@ -119,14 +190,27 @@ class ModelRunner:
                             * pages_needed(scfg.max_len, self.page))
             # decode HBM traffic model (host-side, per attention layer x
             # kv-head): bytes of one page of packed K bit-planes and of V
+            # (packed bit-planes on the binary path, fp otherwise)
             elem = torch.empty((), dtype=cfg.dtype).element_size()
             self._page_v_bytes = self.page * cfg.dh * elem
-            self._page_k_bytes = hamming.packed_words(cfg.dh) * 4 * self.page
+            self._page_k_bytes = (hamming.packed_words(cfg.dh) * 4 * self.page
+                                  if scfg.binary else self._page_v_bytes)
             self._attn_rows = cfg.n_layers * cfg.n_kv_heads
         self.caches = T.init_caches(
             cfg, paged=scfg.paged, batch=scfg.batch_slots,
             max_len=scfg.max_len, n_pages=self.n_pages, page_size=self.page,
-            device=self.device)
+            binary=scfg.binary, device=self.device)
+        b = scfg.batch_slots
+        tables = ({"tables": (b, pages_needed(scfg.max_len, self.page))}
+                  if scfg.paged else {})
+        self._inputs = {
+            "prefill": _StepInputs(dict(tokens=(b, self.chunk), pos=(b,),
+                                        active=(b,), n_valid=(b,), **tables),
+                                   self.device),
+            "decode": _StepInputs(dict(tokens=(b, 1), pos=(b,), active=(b,),
+                                       **tables), self.device)}
+        self._graphs: dict[str, _Graph] = {}
+        self._pool = None               # the graphs' shared memory pool
 
     def sync(self) -> None:
         """Block until every queued device write has landed (the fence
@@ -134,10 +218,68 @@ class ModelRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _dev(self, arr, dtype) -> torch.Tensor | None:
-        if arr is None:             # the dense cache's block tables
-            return None
-        return torch.from_numpy(np.asarray(arr, dtype)).to(self.device)
+    # ------------------------------------------------------------------
+    # the step: static buffers, one graph per kind
+    # ------------------------------------------------------------------
+    def graph_count(self) -> int:
+        """Step graphs captured so far: at most 2 (the padded prefill chunk
+        and the decode step), whatever the prompt lengths. On the CPU,
+        which has no graphs, the step kinds warmed up on the static
+        buffers; 0 with eager=True."""
+        return len(self._graphs)
+
+    def _forward(self, kind: str) -> torch.Tensor:
+        """serve_step on the static inputs of `kind`; logits [B, 1, V]."""
+        v = self._inputs[kind].views
+        return T.serve_step(
+            self.model, v["tokens"], self.caches, pos=v["pos"], n=self.n,
+            block_tables=v.get("tables"), active=v["active"] != 0,
+            n_valid=v.get("n_valid"),
+            page_topn=self.scfg.page_topn if kind == "decode" else None,
+            binary=self.scfg.binary, logits_mode="last")
+
+    def _capture(self, kind: str) -> _Graph:
+        """A kind's first use: one warm-up run (on a side stream, as
+        capture requires), then the capture, both on the null plan so that
+        pages [0, n_pages) and positions [0, max_len) stay untouched. Their
+        kernel launches are not counted; each replay adds the capture's.
+        On the CPU only the warm-up runs. A failure raises."""
+        inp = self._inputs[kind]
+        inp.stage_null()
+        counts = ops.launch_counts()
+        if self.device.type != "cuda":
+            self._forward(kind)
+            return _Graph(None, None, {})
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._forward(kind)
+        stream.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph, pool=self._pool):
+            logits = self._forward(kind)
+        after = ops.launch_counts()
+        ops.reset_launch_counts(counts)
+        return _Graph(graph, logits,
+                      {k: after[k] - before[k] for k in after})
+
+    def _step(self, kind: str, **arrays) -> torch.Tensor:
+        """Stage one step's plan arrays and run it: a replay of the kind's
+        graph (captured at first use), or serve_step itself when eager or
+        on the CPU. Returns logits [B, 1, V]."""
+        if not self.eager and kind not in self._graphs:
+            self._graphs[kind] = self._capture(kind)
+        self._inputs[kind].stage(**arrays)
+        g = self._graphs.get(kind)
+        if g is None or g.graph is None:
+            return self._forward(kind)
+        g.graph.replay()
+        ops.add_launch_counts(g.launches)
+        return g.logits
 
     # ------------------------------------------------------------------
     # low-level steps
@@ -146,13 +288,11 @@ class ModelRunner:
                      active: np.ndarray, n_valid: np.ndarray,
                      block_tables: np.ndarray | None) -> torch.Tensor:
         """One padded prefill chunk: tokens [B, chunk] zero-padded, per-row
-        pos/active/n_valid masks. Returns last-valid logits [B, 1, V]."""
-        logits = T.serve_step(
-            self.model, self._dev(tokens, np.int64), self.caches,
-            pos=self._dev(pos, np.int32), n=self.n,
-            block_tables=self._dev(block_tables, np.int32),
-            active=self._dev(active, bool),
-            n_valid=self._dev(n_valid, np.int32), logits_mode="last")
+        pos/active/n_valid masks. Returns last-valid logits [B, 1, V],
+        valid until the next step."""
+        tables = {} if block_tables is None else {"tables": block_tables}
+        logits = self._step("prefill", tokens=tokens, pos=pos, active=active,
+                            n_valid=n_valid, **tables)
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += int(np.asarray(n_valid).sum())
         return logits
@@ -160,13 +300,11 @@ class ModelRunner:
     def decode_step(self, tokens: np.ndarray, pos: np.ndarray,
                     active: np.ndarray,
                     block_tables: np.ndarray | None) -> torch.Tensor:
-        """One batched ragged decode step; returns logits [B, 1, V]."""
-        logits = T.serve_step(
-            self.model, self._dev(tokens, np.int64)[:, None], self.caches,
-            pos=self._dev(pos, np.int32), n=self.n,
-            block_tables=self._dev(block_tables, np.int32),
-            active=self._dev(active, bool), page_topn=self.scfg.page_topn,
-            logits_mode="last")
+        """One batched ragged decode step; returns logits [B, 1, V], valid
+        until the next step."""
+        tables = {} if block_tables is None else {"tables": block_tables}
+        logits = self._step("decode", tokens=np.asarray(tokens)[:, None],
+                            pos=pos, active=active, **tables)
         if self.scfg.paged:
             self._count_decode_traffic(pos, active)
         return logits

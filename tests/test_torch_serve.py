@@ -9,7 +9,8 @@ page-sparse). The JAX side runs its Pallas kernels in interpret mode, as
 its own serving tests do. Also, inside the port: ragged == sequential
 (with prefix caching, page-sparse decode and recompute preemption), dense
 == paged bit for bit, the unported features raising, the default device
-refusing to fall back to the CPU, and the package importing no JAX.
+refusing to fall back to the CPU, and the package importing no JAX. The
+full-precision baseline's tests are in test_torch_baseline.py.
 """
 import dataclasses
 import functools
@@ -442,8 +443,7 @@ def test_copied_scheduler_plans_equal_reference(kw, reclaims):
 # what this slice refuses, and how it picks the device
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(binary=False), dict(swap_pages=8),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(swap_pages=8), dict(mesh=object())])
 def test_unported_serving_features_raise(kw):
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -460,23 +460,32 @@ def test_unported_layer_patterns_raise():
         eng.step_pipelined()
 
 
-@pytest.mark.parametrize("flags", [[], ["--paged"], ["--page-topn", "1"]],
-                         ids=["dense", "paged", "page_topn"])
+@pytest.mark.parametrize("flags", [[], ["--paged"], ["--page-topn", "1"],
+                                   ["--baseline", "--paged"]],
+                         ids=["dense", "paged", "page_topn", "baseline"])
 def test_launcher_cache_flags(flags, capsys):
     """The dense cache is the default; --page-topn implies --paged and
-    reports its decode traffic. Dense and paged tokens agree."""
+    reports its decode traffic. Dense and paged tokens agree, on HAD and
+    on the full-precision baseline (--baseline), whose tokens differ from
+    HAD's. Every run captures its two step kinds."""
     from repro_torch.launch import serve as launch
     argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--prompt-len",
             "40", "--gen", "3", "--slots", "2", "--requests", "3"]
     got = launch.main(argv + flags)
     text = capsys.readouterr().out
     assert ("kv pool:" in text) == bool(flags)
+    assert "step graphs: 2" in text
+    assert ("full precision" in text) == ("--baseline" in flags)
     if flags == ["--page-topn", "1"]:
         assert "top-1 page-sparse" in text
-    if flags == ["--paged"]:
-        dense = launch.main(argv)
+    if "--paged" in flags:
+        dense = launch.main([f for f in flags if f != "--paged"] + argv)
         assert {k: v.tolist() for k, v in got.items()} == \
             {k: v.tolist() for k, v in dense.items()}
+    if "--baseline" in flags:
+        had = launch.main(argv)
+        assert {k: v.tolist() for k, v in got.items()} != \
+            {k: v.tolist() for k, v in had.items()}
 
 
 def test_default_device_is_cuda_and_never_falls_back():
