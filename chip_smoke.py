@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs four phases; any failure exits non-zero before the result line.
+runs five phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -65,6 +65,18 @@ runs four phases; any failure exits non-zero before the result line.
    not counted: page_topn 64 with the unfused selection must attend the
    same pages and give the same tokens, and paged with the eager step
    must give the same tokens as the graphed one.
+5. The serving surface at full size, phase 4's weights and workload, each
+   run under phase 4's launch rule and graph count, its tokens equal to
+   phase 4's paged (or full-precision paged) run: (a) swap-out preemption
+   over an overcommitted pool (384 pages, a 1024-page host pool), binary
+   and full precision, which must swap, recompute nothing and drain both
+   pools, with the host ms of steps that swap against those that do not
+   and the transfer time of a 171-page victim, then recompute
+   preemption on that pool (tokens reported, not checked); (b) sync against
+   pipelined stepping (`step_pipelined`) on one engine, S P P S, with
+   tok/s, ITL, TTFT and the overlap fraction; (c) the asyncio front end
+   (`AsyncEngine`) from a fresh engine's first step, streamed tokens equal
+   to the results, then warm beside the pipelined and the sync step.
 
 `--profile DIR` then profiles the prefill of one 3072-token prompt and
 decode windows of the paged, the dense, the full-precision paged and the
@@ -818,25 +830,40 @@ def phase3() -> None:
 # phase 4: the slice at full size
 # ---------------------------------------------------------------------------
 
-def _serve_run(eng, prompts, gen: int) -> dict:
-    """The staggered workload through `eng` (4 requests up front, one more
-    every 4 steps). Launch counts are zeroed just before and read just
-    after."""
+def _workload(cfg):
+    """Phase 4's workload: 8 prompts of 512-3072 tokens drawn from seed 0,
+    32 new tokens each, and the ServeConfig fields every run shares."""
     import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 3073, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    base = dict(max_len=4096, batch_slots=4, prefill_chunk=512,
+                page_size=16)
+    return lens, prompts, 32, base
+
+
+def _serve_run(eng, prompts, gen: int, step=None, stagger: int = 4) -> dict:
+    """The staggered workload through `eng` (4 requests up front, one more
+    every `stagger` steps; all up front with stagger 0), stepped by `step`
+    (default `eng.step`). Launch counts are zeroed just before and read
+    just after."""
     import torch
     from repro_torch.kernels import ops
+    step = eng.step if step is None else step
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    ids = [eng.submit(p, max_new_tokens=gen) for p in prompts[:4]]
-    results, steps, nxt, metrics = {}, 0, 4, []
+    nxt = 4 if stagger else len(prompts)
+    ids = [eng.submit(p, max_new_tokens=gen) for p in prompts[:nxt]]
+    results, steps, metrics = {}, 0, []
     while eng.queue or any(s.request is not None for s in eng.slots) \
-            or nxt < len(prompts):
-        for fr in eng.step():
+            or nxt < len(prompts) or eng._inflight is not None:
+        for fr in step():
             results[fr.request_id] = fr.tokens
         metrics += eng.pop_finished_metrics()
         steps += 1
-        if nxt < len(prompts) and steps % 4 == 0:   # staggered arrivals
+        if nxt < len(prompts) and steps % stagger == 0:   # arrivals
             ids.append(eng.submit(prompts[nxt], max_new_tokens=gen))
             nxt += 1
     torch.cuda.synchronize()
@@ -844,8 +871,16 @@ def _serve_run(eng, prompts, gen: int) -> dict:
     counts = ops.launch_counts()
     metrics += eng.pop_finished_metrics()
     eng.check()
-    check(sorted(results) == sorted(ids) and len(ids) == len(prompts),
-          "every request finishes")
+    check(len(ids) == len(prompts), "every request is submitted")
+    return _result(eng, ids, results, gen, counts, wall, steps, metrics)
+
+
+def _result(eng, ids, results, gen, counts, wall, steps, metrics) -> dict:
+    """A served run's record: tokens in submission order (each checked to
+    be `gen` in-vocabulary tokens) and their digest, launch counts, host
+    wall, steps, the engine's counters, TTFT and ITL in ms."""
+    import numpy as np
+    check(sorted(results) == sorted(ids), "every request finishes")
     for rid in ids:
         toks = results[rid]
         check(toks.shape == (gen,), (rid, toks.shape))
@@ -859,6 +894,21 @@ def _serve_run(eng, prompts, gen: int) -> dict:
                 itl=np.array([x for m in metrics for x in m.itl]) * 1e3)
 
 
+def _check_launches(name, eng, r, decoders) -> None:
+    """Phase 4's launch rule: every kernel of the run's path ran once a
+    layer for each prefill chunk (the prefill kernel, binary runs only) or
+    decode step (`decoders`), through replays, and nothing else ran."""
+    from repro_torch.kernels import binary_prefill_attention as pre
+    st = r["stats"]
+    want = {k: 0 for k in r["counts"]}
+    if eng.scfg.binary:
+        want[pre.NAME] = eng.cfg.n_layers * st["prefill_chunks"]
+    for mod in decoders:
+        want[mod.NAME] = eng.cfg.n_layers * st["decode_steps"]
+    check(r["counts"] == want and st["decode_steps"] > 0,
+          (name, r["counts"], want))
+
+
 def phase4():
     import numpy as np
     import torch
@@ -867,7 +917,6 @@ def phase4():
     from repro_torch.kernels import binary_decode_attention as dec
     from repro_torch.kernels import binary_page_score as pscore
     from repro_torch.kernels import binary_paged_decode_attention as pdec
-    from repro_torch.kernels import binary_prefill_attention as pre
     from repro_torch.kernels import hamming_score as hs
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -878,14 +927,8 @@ def phase4():
                           device="cuda")
     log(f"phase 4: {cfg.name} {cfg.n_layers} layers {cfg.param_dtype}, "
         f"weights in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(512, 3073, 8)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in lens]
-    gen = 32
+    lens, prompts, gen, base = _workload(cfg)
     log(f"phase 4: prompts {lens.tolist()}, {gen} new tokens each")
-    base = dict(max_len=4096, batch_slots=4, prefill_chunk=512,
-                page_size=16)
     # run -> (ServeConfig fields, the decode kernels its path launches);
     # "fp_" runs serve the full-precision baseline, which launches none of
     # the kernels
@@ -914,19 +957,13 @@ def phase4():
         with (unfused_select() if name.endswith("_unfused")
               else contextlib.nullcontext()):
             r = _serve_run(eng, prompts, gen)
-        st = r["stats"]
         check(eng.runner.graph_count() == (0 if eager else 2),
               (name, "graphs", eng.runner.graph_count()))
-        want = {k: 0 for k in r["counts"]}
-        if eng.scfg.binary:
-            want[pre.NAME] = cfg.n_layers * st["prefill_chunks"]
-        for mod in decoders:
-            want[mod.NAME] = cfg.n_layers * st["decode_steps"]
-        check(r["counts"] == want and st["decode_steps"] > 0,
-              (name, r["counts"], want))
+        _check_launches(name, eng, r, decoders)
         if name not in extra:
             for k, v in r["counts"].items():
                 total[k] = total.get(k, 0) + v
+        st = r["stats"]
         log(f"phase 4 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
             f"prefill chunks, {st['decode_steps']} decode steps, "
             f"{eng.runner.graph_count()} step graphs, launches "
@@ -994,7 +1031,225 @@ def phase4():
     check(scores[0].shape == (3, 1536, 4096)
           and torch.equal(scores[0], scores[1])
           and int(scores[0].abs().max()) <= D, "hamming_scores")
-    return total, engines
+    return total, engines, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving surface at full size
+# ---------------------------------------------------------------------------
+
+def _step_ms(tel) -> dict:
+    """Host ms of a run's steps (schedule + execute + commit, from the
+    telemetry's step events), by kind: whether the step moved pages to or
+    from the host, and whether it ran a prefill chunk."""
+    groups: dict[str, list[float]] = {}
+    for e in tel.recorder.events():
+        if e["kind"] != "step":
+            continue
+        swaps = e["swap_ins"] or any(rc["kind"] == "swap-out"
+                                     for rc in e["reclaims"])
+        key = (("swap" if swaps else "no swap")
+               + (", prefill" if e["prefill"] else ", decode only"))
+        t = e["timings"]
+        groups.setdefault(key, []).append(
+            (t["schedule"] + t["execute"] + t["commit"]) * 1e3)
+    return groups
+
+
+def _swap_transfer_ms(eng, n_pages: int) -> tuple[int, float, float]:
+    """Bytes, and host ms each way, of swapping `n_pages` pages of the idle
+    engine's pool out to pinned host memory and back in (the runner's own
+    transfers, each ended by a device sync; pages [0, n_pages) are
+    restored as they were)."""
+    import torch
+    runner = eng.runner
+    pages = tuple(range(n_pages))
+    before = eng.stats["swap_out_bytes"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner._swap_out_pages(-1, pages)
+    runner._finalize_swaps()
+    t1 = time.perf_counter()
+    runner._swap_in_pages(-1, pages)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (eng.stats["swap_out_bytes"] - before, (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3)
+
+
+def phase5(engines: dict, runs: dict) -> None:
+    """Phase 4's workload through swap-out preemption, pipelined stepping
+    and the asyncio front end, on the same 30-layer weights; each run's
+    tokens must equal phase 4's unpreempted graphed run of its path, each
+    engine must hold exactly 2 graphs, and each run must follow phase 4's
+    launch rule (counts zeroed just before, read just after).
+
+    (a) Paged with an overcommitted pool, n_pages 384 (the first four
+        requests need 171 + 136 + 116 + 78 = 501 pages by their last
+        token), and a 1024-page host pool, binary and fp: swap-outs > 0,
+        nothing recomputed, both pools drained; host ms of steps that swap
+        against steps that do not, and the transfer time of a 171-page
+        victim each way. Then the same pool without swap space, which
+        preempts by recompute: its tokens are reported against phase 4's,
+        not checked (the re-prefill runs the prefill graph's products).
+    (b) Paged, sync and pipelined (`step_pipelined`) in turns S P P S on
+        one engine whose graphs were captured first: tok/s, ITL p50/p95,
+        TTFT p50 and the overlap fraction.
+    (c) An AsyncEngine over a fresh paged engine, from its first step (so
+        both captures happen in its worker thread), then again, then the
+        pipelined and the sync step on that engine, all 8 requests up
+        front: streamed tokens == results == phase 4's."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AsyncEngine, Telemetry
+    model = engines["paged"].runner.model
+    cfg = engines["paged"].cfg
+    _, prompts, gen, base = _workload(cfg)
+
+    def same(name, r, ref):
+        check(r["digest"] == runs[ref]["digest"] and all(
+            np.array_equal(a, b) for a, b in zip(r["tokens"],
+                                                 runs[ref]["tokens"])),
+              f"{name}: tokens differ from phase 4's {ref} run")
+
+    def summary(r) -> str:
+        return (f"{r['stats']['tokens_generated'] / r['wall']:.2f} "
+                f"generated tok/s, wall {r['wall']:.3f} s, ITL p50/p95 "
+                f"{np.percentile(r['itl'], 50):.2f}/"
+                f"{np.percentile(r['itl'], 95):.2f} ms, TTFT p50 "
+                f"{np.percentile(r['ttft'], 50):.2f} ms")
+
+    # (a) swap-out preemption
+    for pre_, binary in (("", True), ("fp_", False)):
+        name = f"{pre_}paged_swap"
+        tel = Telemetry(trace_capacity=4096)
+        eng = _engine(cfg, model, dict(base, paged=True, n_pages=384,
+                                       swap_pages=1024, binary=binary),
+                      "cuda", telemetry=tel)
+        r = _serve_run(eng, prompts, gen)
+        st = r["stats"]
+        check(st["swap_outs"] > 0, f"{name}: no swap-out happened (void)")
+        check(st["replayed_tokens"] == 0 and st["swap_ins"]
+              == st["swap_outs"], (name, st))
+        check(eng.allocator.in_use == 0 and eng.swap.in_use == 0,
+              f"{name}: pools not drained")
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        _check_launches(name, eng, r, (pdec,) if binary else ())
+        same(name, r, f"{pre_}paged")
+        log(f"phase 5 [{name}]: {r['steps']} steps, {st['preemptions']} "
+            f"preemptions, {st['swap_outs']} swap-outs / {st['swap_ins']} "
+            f"swap-ins, {st['swapped_tokens']} tokens restored, "
+            f"{st['replayed_tokens']} recomputed, swap_out_bytes "
+            f"{st['swap_out_bytes']}, swap_in_bytes {st['swap_in_bytes']}, "
+            f"peak host pool {eng.swap.peak_in_use} pages, launches "
+            f"{r['counts']}, tokens sha1 {r['digest']} (== phase 4's "
+            f"{pre_}paged)")
+        log(f"phase 5 [{name}]: {summary(r)}")
+        for kind, ms in sorted(_step_ms(tel).items()):
+            log(f"phase 5 [{name}]: steps with {kind}: {len(ms)}, host ms "
+                f"a step median {np.median(ms):.3f}, p95 "
+                f"{np.percentile(ms, 95):.3f}, max {max(ms):.3f}")
+        victim = 171                  # the longest request's pages
+        for _ in range(3):
+            nbytes, out_ms, in_ms = _swap_transfer_ms(eng, victim)
+            log(f"phase 5 [{name}]: a {victim}-page victim, {nbytes} bytes: "
+                f"swap-out (gather + copy to pinned host + sync) "
+                f"{out_ms:.3f} ms ({nbytes / out_ms / 1e6:.2f} GB/s), "
+                f"swap-in (copy + scatter + sync) {in_ms:.3f} ms "
+                f"({nbytes / in_ms / 1e6:.2f} GB/s)")
+
+    # the same pool without host swap space preempts by recompute, which
+    # re-prefills generated tokens through the prefill graph (other matrix
+    # shapes than the decode graph's, so cuBLAS may round differently):
+    # its tokens are reported against phase 4's, not checked
+    eng = _engine(cfg, model, dict(base, paged=True, n_pages=384), "cuda",
+                  telemetry=Telemetry())
+    r = _serve_run(eng, prompts, gen)
+    st = r["stats"]
+    check(eng.runner.graph_count() == 2 and st["replayed_tokens"] > 0,
+          ("paged_recompute", eng.runner.graph_count(), st))
+    _check_launches("paged_recompute", eng, r, (pdec,))
+    agree = [int(np.sum(a == b)) for a, b in zip(r["tokens"],
+                                                 runs["paged"]["tokens"])]
+    log(f"phase 5 [paged_recompute]: {st['preemptions']} preemptions, "
+        f"{st['replayed_tokens']} tokens recomputed, {summary(r)}; tokens "
+        f"sha1 {r['digest']}, {sum(agree)} of {gen * len(agree)} equal to "
+        f"phase 4's paged run ({agree} by request)")
+
+    # (b) sync against pipelined, in turns on one engine, its two graphs
+    # captured first
+    eng = _engine(cfg, model, dict(base, paged=True), "cuda",
+                  telemetry=Telemetry(trace_capacity=4096))
+    eng.generate([prompts[0][:600]], 2)
+    for i, mode in enumerate(("sync", "pipelined", "pipelined", "sync")):
+        eng.reset_stats()
+        r = _serve_run(eng, prompts, gen, step=(
+            eng.step_pipelined if mode == "pipelined" else eng.step))
+        name = f"paged_{mode}_{i}"
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        _check_launches(name, eng, r, (pdec,))
+        same(name, r, "paged")
+        ov = eng.overlap_stats()
+        log(f"phase 5 [{name}]: {summary(r)}, {r['steps']} steps"
+            + (f", overlap_frac {ov['overlap_frac']:.3f} "
+               f"({ov['overlap_s'] * 1e3:.2f} of {ov['schedule_s'] * 1e3:.2f}"
+               f" ms of scheduling hidden)" if mode == "pipelined" else ""))
+
+    # (c) the asyncio front end, from a fresh engine's first step (both
+    # captures in its worker thread), then again warm, then the pipelined
+    # and the sync step on the same engine; all 8 requests up front
+    eng = _engine(cfg, model, dict(base, paged=True), "cuda",
+                  telemetry=Telemetry(trace_capacity=4096))
+
+    async def serve():
+        aeng = AsyncEngine(eng)
+
+        async def client(prompt):
+            h = await aeng.submit(prompt, max_new_tokens=gen)
+            streamed = [t async for t in h]
+            return h.request_id, streamed, await h.result()
+
+        runner = asyncio.ensure_future(aeng.run())
+        outs = await asyncio.gather(*[client(p) for p in prompts])
+        aeng.stop()
+        await runner
+        eng.scheduler.token_sink = None
+        return outs, aeng.finished_metrics
+
+    for name in ("paged_async_first", "paged_async",
+                 "paged_pipelined_up_front", "paged_sync_up_front"):
+        eng.reset_stats()
+        if name.endswith("_up_front"):
+            r = _serve_run(eng, prompts, gen, stagger=0, step=(
+                eng.step_pipelined if "pipelined" in name else eng.step))
+        else:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs, metrics = asyncio.run(serve())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for rid, streamed, result in outs:
+                check(np.array_equal(np.asarray(streamed, np.int32), result),
+                      f"{name} request {rid}: streamed tokens != result")
+            r = _result(eng, [rid for rid, _, _ in outs],
+                        {rid: res for rid, _, res in outs}, gen, counts,
+                        wall, None, metrics)
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        _check_launches(name, eng, r, (pdec,))
+        same(name, r, "paged")
+        log(f"phase 5 [{name}]: all 8 requests up front, {summary(r)}, "
+            f"launches {r['counts']}; "
+            + ("streamed == result == " if "async" in name else "")
+            + "phase 4's paged tokens")
 
 
 def profile_windows(engines: dict, out_dir: str) -> None:
@@ -1148,7 +1403,8 @@ def main() -> int:
         card = phase1()
         records = phase2()
         phase3()
-        counts, engines = phase4()
+        counts, engines, runs = phase4()
+        phase5(engines, runs)
         if args.profile:
             profile_windows(engines, args.profile)
     except Exception:

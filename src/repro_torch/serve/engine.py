@@ -3,36 +3,61 @@
 A thin facade over the scheduler/runner split:
 
   * `Scheduler` (copied verbatim from the JAX package) is pure host-side
-    policy -- queue, slots, BlockAllocator / PrefixCache bookkeeping,
-    admission, the prefill budget, victim selection -- and emits a
-    frozen `SchedulePlan`.
+    policy -- queue, slots, BlockAllocator / PrefixCache / SwapPool
+    bookkeeping, admission, the prefill budget, victim selection -- and
+    emits a frozen `SchedulePlan`.
   * `ModelRunner` executes the plan on the device and returns the
     sampled tokens.
-  * `Engine.step()` is exactly `commit(plan, execute(schedule()))`.
+  * `Engine.step()` is exactly `commit(plan, execute(schedule()))`;
+    `step_pipelined()` is the double-buffered form, which builds plan N+1
+    while step N runs on the device.
 
-This slice serves the binary path and the full-precision baseline
-(`ServeConfig(binary=False)`) over the paged cache (with recompute
-preemption, `prefix_cache` and page-sparse decode, `page_topn`) or the
-dense cache (`paged=False`). Everything else raises NotImplementedError
-when the engine builds its runner; see ROADMAP.md. The engine runs on the
-card unless the caller asks for the CPU, each step as a CUDA graph replay
-unless it asks for the eager step (`eager=True`).
+The port serves the binary path and the full-precision baseline
+(`ServeConfig(binary=False)`) over the paged cache (with recompute or
+swap-out preemption, `swap_pages`, `prefix_cache` and page-sparse decode,
+`page_topn`) or the dense cache (`paged=False`), stepped synchronously,
+pipelined, or from asyncio (`serve/async_engine.py`). Tensor-parallel
+serving and hybrid, cross-attention, MoE and frontend models raise
+NotImplementedError when the engine builds its runner; see ROADMAP.md.
+The engine runs on the card unless the caller asks for the CPU, each step
+as a CUDA graph replay unless it asks for the eager step (`eager=True`).
+
+The low-level `prefill()` / `decode()` methods remain for lockstep use
+(uniform-length batches driven by hand) and for tests.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Any
+
 import numpy as np
+import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
-from repro_torch.serve.paged import BlockAllocator
+from repro_torch.serve.paged import BlockAllocator, PrefixCache, SwapPool
 from repro_torch.serve.runner import ModelRunner
 from repro_torch.serve.scheduler import (FinishedRequest, Request,
-                                         SamplingParams, Scheduler,
-                                         ServeConfig)
+                                         SamplingParams, SchedulePlan,
+                                         Scheduler, ServeConfig)
+from repro_torch.serve.statepool import StatePool
 from repro_torch.serve.telemetry import RequestMetrics, Telemetry
 
 __all__ = ["Engine", "FinishedRequest", "Request", "RequestMetrics",
            "SamplingParams", "ServeConfig", "Telemetry"]
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched-but-uncommitted pipelined step: the resolved plan,
+    the runner's pending handle, and the host timestamps needed to stamp
+    its flight-recorder event once it lands."""
+    plan: SchedulePlan
+    pending: Any
+    launch_ts: float                   # execute_async dispatch time
+    sched_s: float                     # host time spent building the plan
+    structural_s: float                # host time of commit_structural
 
 
 class Engine:
@@ -51,6 +76,12 @@ class Engine:
                                   eager=eager)
         self.runner.telemetry = telemetry
         self.n = self.runner.n
+        self.chunk = self.scheduler.chunk
+        # the double buffer: at most ONE dispatched-but-uncommitted step
+        self._inflight: _Inflight | None = None
+        # pipelined-mode overlap accounting (seconds): how much host
+        # schedule time was hidden under the previous step's device window
+        self._pipe = {"overlap": 0.0, "schedule": 0.0, "steps": 0}
 
     # ------------------------------------------------------------------
     # facade: shared state lives on the scheduler (host) / runner (device)
@@ -71,6 +102,43 @@ class Engine:
     def allocator(self) -> BlockAllocator | None:
         return self.scheduler.allocator
 
+    @property
+    def prefix(self) -> PrefixCache | None:
+        return self.scheduler.prefix
+
+    @property
+    def swap(self) -> SwapPool | None:
+        return self.scheduler.swap
+
+    @property
+    def statepool(self) -> StatePool | None:
+        """None: no model the port serves has pooled SSM/cross state."""
+        return self.scheduler.statepool
+
+    @property
+    def block_tables(self):
+        return self.scheduler.block_tables
+
+    @property
+    def state_tables(self):
+        return self.scheduler.state_tables
+
+    @property
+    def max_blocks(self) -> int:
+        return self.scheduler.max_blocks
+
+    @property
+    def page(self) -> int:
+        return self.scheduler.page
+
+    @property
+    def caches(self) -> list[dict]:
+        """The runner's caches, one dict of tensors per layer. Read-only
+        here, unlike the JAX Engine's: the captured graphs hold these
+        tensors' addresses, so they are written in place (see
+        `runner.reset_caches`), never replaced."""
+        return self.runner.caches
+
     # ------------------------------------------------------------------
     # scheduler API
     # ------------------------------------------------------------------
@@ -85,16 +153,20 @@ class Engine:
                                      priority=priority)
 
     def step(self) -> list[FinishedRequest]:
-        """One synchronous scheduler step; returns newly finished requests.
+        """One synchronous scheduler step; returns newly finished requests
+        (any in-flight pipelined step is landed first, so mixing the two
+        stepping APIs never reorders commits).
 
         With telemetry attached, each phase is timed on the host and the
         plan is recorded as one flight-recorder step event;
         `Telemetry(fence=True)` synchronizes the device before the
         execute->commit stamp so execute time is device time."""
+        finished = self.flush()
         tel = self.telemetry
         if tel is None:
             plan = self.scheduler.schedule()
-            return self.scheduler.commit(plan, self.runner.execute(plan))
+            results = self.runner.execute(plan)
+            return finished + self.scheduler.commit(plan, results)
         t0 = tel.clock()
         plan = self.scheduler.schedule()
         t1 = tel.clock()
@@ -102,7 +174,7 @@ class Engine:
         if tel.fence:
             self.runner.sync()
         t2 = tel.clock()
-        finished = self.scheduler.commit(plan, results)
+        finished += self.scheduler.commit(plan, results)
         t3 = tel.clock()
         tel.record_step(plan, timings={"schedule": t1 - t0,
                                        "execute": t2 - t1,
@@ -111,16 +183,105 @@ class Engine:
                         pool=self.scheduler.watermarks())
         return finished
 
-    def step_pipelined(self):
-        raise NotImplementedError(
-            "pipelined/async serving is not ported yet: see ROADMAP.md "
-            "queue 1, 'Still to port'")
+    # ------------------------------------------------------------------
+    # pipelined stepping (double-buffered schedule/execute overlap)
+    # ------------------------------------------------------------------
+    def _clock(self):
+        return self.telemetry.clock if self.telemetry else time.perf_counter
+
+    def step_pipelined(self) -> list[FinishedRequest]:
+        """One double-buffered step: build plan N+1 while step N is still
+        on the device, then land step N (`runner.wait`), token-commit it,
+        rebind plan N+1's stale decode inputs (`resolve_plan`), dispatch
+        it (`execute_async`) and apply its structural commit. Tokens are
+        bit-identical to `step()`'s; scheduling policy may differ
+        (admissions and preemptions see token effects a step later).
+        Returns the requests finished by the step that landed."""
+        clock = self._clock()
+        t0 = clock()
+        plan = self.scheduler.schedule()
+        t1 = clock()
+        self._pipe["schedule"] += t1 - t0
+        finished = (self._complete_inflight((t0, t1))
+                    if self._inflight is not None else [])
+        if not (plan.admissions or plan.swap_ins or plan.reclaims
+                or plan.prefill or plan.decode):
+            return finished            # nothing to dispatch: don't track
+        plan = self.scheduler.resolve_plan(plan)
+        launch = clock()
+        pending = self.runner.execute_async(plan)
+        s0 = clock()
+        self.scheduler.commit_structural(plan)
+        s1 = clock()
+        self._inflight = _Inflight(plan, pending, launch, t1 - t0, s1 - s0)
+        self._pipe["steps"] += 1
+        self.stats["pipelined_steps"] += 1
+        return finished
+
+    def _complete_inflight(self, overlap_interval: tuple[float, float]
+                           | None = None) -> list[FinishedRequest]:
+        """Land the in-flight step: host-sync its sampled tokens, token-
+        commit them, and stamp its flight-recorder event. The event's
+        `overlap` is how much of the given host interval (the NEXT plan's
+        schedule phase) fell inside this step's device window
+        [dispatch, wait-end]."""
+        inflight = self._inflight
+        self._inflight = None
+        results = self.runner.wait(inflight.pending)
+        clock = self._clock()
+        t2 = clock()
+        finished = self.scheduler.commit_tokens(inflight.plan, results)
+        t3 = clock()
+        execute_s = t2 - inflight.launch_ts
+        overlap = 0.0
+        if overlap_interval is not None:
+            o0, o1 = overlap_interval
+            overlap = max(0.0, min(o1, t2) - max(o0, inflight.launch_ts))
+        self._pipe["overlap"] += overlap
+        if self.telemetry is not None:
+            self.telemetry.record_step(
+                inflight.plan,
+                timings={"schedule": inflight.sched_s,
+                         "execute": execute_s,
+                         "commit": inflight.structural_s + (t3 - t2),
+                         "fenced": False,
+                         "overlap": overlap,
+                         "pipelined": True},
+                pool=self.scheduler.watermarks())
+        return finished
+
+    def flush(self) -> list[FinishedRequest]:
+        """Land any in-flight pipelined step (no-op when none). Called on
+        entry to every synchronous `step()`."""
+        if self._inflight is None:
+            return []
+        return self._complete_inflight()
+
+    def overlap_stats(self) -> dict:
+        """Pipelined-overlap accounting: seconds of host schedule time in
+        total and hidden under device windows, and their ratio."""
+        s = self._pipe
+        frac = (s["overlap"] / s["schedule"]) if s["schedule"] > 0 else 0.0
+        return {"schedule_s": s["schedule"], "overlap_s": s["overlap"],
+                "pipelined_steps": s["steps"], "overlap_frac": frac}
 
     def run(self) -> dict[int, np.ndarray]:
         """Step until queue and slots drain; returns request_id -> tokens."""
         out: dict[int, np.ndarray] = {}
         while self.queue or any(s.request is not None for s in self.slots):
             for fr in self.step():
+                out[fr.request_id] = fr.tokens
+        for fr in self.scheduler._drain_finished():
+            out[fr.request_id] = fr.tokens
+        return out
+
+    def run_pipelined(self) -> dict[int, np.ndarray]:
+        """`run()` over the double-buffered step: drains the queue, all
+        slots AND the in-flight step; returns request_id -> tokens."""
+        out: dict[int, np.ndarray] = {}
+        while (self.queue or any(s.request is not None for s in self.slots)
+               or self._inflight is not None):
+            for fr in self.step_pipelined():
                 out[fr.request_id] = fr.tokens
         for fr in self.scheduler._drain_finished():
             out[fr.request_id] = fr.tokens
@@ -142,9 +303,10 @@ class Engine:
                 if self.telemetry is not None else [])
 
     def check(self) -> None:
-        """Run every pool invariant check (BlockAllocator accounting and
-        slot <-> block-table cross-checks). On failure the flight recorder
-        is dumped to the telemetry trace file, when one is configured."""
+        """Run every pool invariant check (BlockAllocator / SwapPool
+        accounting and slot <-> block-table cross-checks). On failure the
+        flight recorder is dumped to the telemetry trace file, when one is
+        configured."""
         try:
             self.scheduler.check()
         except Exception as e:
@@ -156,3 +318,109 @@ class Engine:
                                    "ok": False, "error": str(e)}],
                     note=f"invariant failure dump: {e}")
             raise
+
+    def dump_trace(self, path: str | None = None, *,
+                   requests=()) -> int:
+        """Write the flight-recorder ring buffer as JSONL (meta header,
+        buffered step events, live + undrained request records, and a
+        check event from an auto-run `check()`). Records already drained
+        via `pop_finished_metrics()` can be handed back through
+        `requests` to appear in the dump. Returns the number of events
+        written."""
+        tel = self.telemetry
+        if tel is None:
+            raise RuntimeError("dump_trace requires an Engine telemetry "
+                               "hub (Engine(..., telemetry=Telemetry()))")
+        path = path if path is not None else tel.trace_file
+        if path is None:
+            raise RuntimeError("no trace path: pass one or set "
+                               "Telemetry(trace_file=...)")
+        ok, err = True, ""
+        try:
+            self.scheduler.check()
+        except AssertionError as e:
+            ok, err = False, str(e)
+        extra = [m.to_event() for m in requests]
+        extra += [m.to_event() for m in tel.live_requests]
+        extra += [m.to_event() for m in tel._finished]
+        extra.append({"kind": "check", "ts": tel.clock(), "ok": ok,
+                      "error": err})
+        n = tel.recorder.dump(path, extra_events=extra, clock=tel.clock)
+        if not ok:
+            raise AssertionError(err)
+        return n
+
+    def reset_stats(self) -> None:
+        """Zero the counters and the pipelined-overlap accounting (e.g.
+        after a warm-up pass); watermarks restart at current occupancy,
+        and telemetry request records from before the reset are dropped."""
+        self.scheduler.reset_stats()
+        self._pipe = {"overlap": 0.0, "schedule": 0.0, "steps": 0}
+        if self.telemetry is not None:
+            self.telemetry.pop_finished()
+
+    # ------------------------------------------------------------------
+    # low-level lockstep API (uniform batches, hand-driven)
+    # ------------------------------------------------------------------
+    def prefill(self, tokens: np.ndarray) -> torch.Tensor:
+        """Uniform-length batched prefill of ALL slots at once.
+
+        tokens: [batch_slots, S]. Resets every slot (resident requests are
+        dropped with their caches, sampling rngs and pending tokens) and
+        raises if requests are still queued. Returns last-position logits
+        [batch_slots, V], a copy: the step's own output is overwritten by
+        the next step. Runs on the scheduler's padded-chunk graph."""
+        if self.queue:
+            raise RuntimeError(
+                f"lockstep prefill() with {len(self.queue)} queued "
+                f"request(s): it would silently orphan them — drain the "
+                f"scheduler (run()) or don't mix the APIs")
+        tokens = np.asarray(tokens, np.int32)
+        b, s = tokens.shape
+        if b != self.scfg.batch_slots:
+            raise ValueError(f"prefill() takes one row per slot: {b} rows "
+                             f"for {self.scfg.batch_slots} slots")
+        self._inflight = None          # lockstep resets drop pending work
+        self.scheduler.reset_for_lockstep()
+        self.runner.reset_caches()
+        if self.scfg.paged:
+            for i in range(b):  # lockstep never preempts: all-or-error
+                self.scheduler.lockstep_alloc(i, s)
+        logits = None
+        lo = 0
+        while lo < s:
+            hi = min(lo + self.chunk, s)
+            nv = hi - lo
+            padded = np.zeros((b, self.chunk), np.int32)
+            padded[:, :nv] = tokens[:, lo:hi]
+            logits = self.runner.prefill_step(
+                padded, np.full((b,), lo, np.int32), np.ones((b,), bool),
+                np.full((b,), nv, np.int32), self.block_tables)
+            lo = hi
+        for slot in self.slots:
+            slot.length = s
+            slot.prefill_pos = s
+        return logits[:, -1, :self.cfg.vocab_size].clone()
+
+    def decode(self, tokens: np.ndarray) -> torch.Tensor:
+        """One ragged decode step for every slot. tokens: [batch_slots]
+        int. Slots may sit at different positions (per-slot `pos`).
+        Returns logits [batch_slots, V], a copy."""
+        pos = np.array([s.length for s in self.slots], np.int32)
+        if (pos >= self.scfg.max_len).any():
+            raise ValueError(f"slot cache full (max_len={self.scfg.max_len})")
+        b = self.scfg.batch_slots
+        if self.scfg.paged:
+            for i in range(b):  # lockstep never preempts: all-or-error
+                self.scheduler.lockstep_alloc(i, int(pos[i]) + 1)
+        logits = self.runner.decode_step(np.asarray(tokens, np.int32), pos,
+                                         np.ones((b,), bool),
+                                         self.block_tables)
+        for slot in self.slots:
+            slot.length += 1
+        return logits[:, 0, :self.cfg.vocab_size].clone()
+
+    @property
+    def lengths(self) -> np.ndarray:
+        """Per-slot valid cache lengths, int32 (kernel dtype)."""
+        return self.scheduler.lengths

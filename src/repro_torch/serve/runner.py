@@ -1,29 +1,45 @@
 """Serving execution layer: the ModelRunner (torch twin of
 ``repro.serve.runner``).
 
-The runner owns the model, the KV page pools and sampling, and nothing
-else. Each step it executes exactly the frozen SchedulePlan the Scheduler
-handed it and returns the per-slot sampled tokens; all bookkeeping driven
-by those tokens happens back in `Scheduler.commit`.
+The runner owns the model, the KV page pools, sampling and the host-side
+contents of swapped-out pages, and nothing else. Each step it executes
+exactly the frozen SchedulePlan the Scheduler handed it and returns the
+per-slot sampled tokens; all bookkeeping driven by those tokens happens
+back in `Scheduler.commit`.
 
-Execution order within one plan (as in the JAX runner):
+Execution order within one plan (as in the JAX runner; the order that
+makes page recycling safe):
 
-  1. swap-in scatters, 2. swap-out gathers, 3. admission state init --
-     none of which this slice runs: swap preemption and pooled SSM/cross
-     state are rejected when the engine is built;
+  1. swap-in scatters: restore swapped requests' page contents into their
+     freshly allocated device pages, in place;
+  2. swap-out gathers: copy each victim's pages on the device, before any
+     planned write can recycle them, and start their copy to pinned host
+     memory;
+  3. admission state init: a no-op, since no model this port serves has
+     pooled SSM or cross state (ROADMAP.md queue 1);
   4. prefill chunks, in plan order, sampling each completed prompt's
      first token from the chunk's last-valid logits;
   5. one batched ragged decode over the plan's decode set (minus slots
      whose just-sampled first token hit eos).
 
-`execute(plan)` is `wait(execute_async(plan))`: the decode logits stay on
-the device until `wait()` copies them to the host and samples.
+Everything runs on the current stream, so stream order alone keeps the
+swap gathers ahead of the step that recycles their pages. The swap
+transfers are one indexed copy per pool leaf outside the captured graphs,
+so the two-graph pin holds.
+
+`execute(plan)` is `wait(execute_async(plan))`. `execute_async` returns
+once the step is enqueued: the decode logits are on their way to a pinned
+host buffer, and `wait()` is the one host sync point, where they are
+sampled and pending swap-out bytes land. A pipelined engine schedules the
+next plan between the two.
 
 Each step runs as a replay of one of at most two CUDA graphs per runner,
 one for the padded prefill chunk and one for the decode step (the
 counterpart of the JAX runner's one jit trace each): every plan array of
 a step sits in one static device buffer, filled from a host staging
 buffer by one copy, and the graph is captured at the kind's first use.
+The graphs hold the addresses of the cache tensors, so every write
+outside them (swap-in, `reset_caches`) is in place, never a rebinding.
 `ModelRunner(eager=True)` runs the same step op by op instead, to compare
 the two; nothing falls back to it.
 """
@@ -62,15 +78,21 @@ def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for anything
     this slice of the port does not serve."""
     T.check_supported(cfg)
-    missing = [
-        (scfg.swap_pages > 0, "swap-out preemption (swap_pages > 0)"),
-        (scfg.mesh is not None, "tensor-parallel serving (mesh)"),
-    ]
-    for hit, what in missing:
-        if hit:
-            raise NotImplementedError(
-                f"repro_torch does not serve {what} yet: see ROADMAP.md "
-                f"queue 1, 'Still to port'")
+    if scfg.mesh is not None:
+        raise NotImplementedError(
+            "repro_torch does not serve tensor-parallel serving (mesh) yet: "
+            "see ROADMAP.md queue 1, 'Still to port'")
+
+
+def _refuse_state_page(state_page: int) -> None:
+    """Pooled SSM/cross state entries travel with a victim's pages only
+    for hybrid and cross-attention models, which the port does not serve
+    yet."""
+    if state_page >= 0:
+        raise NotImplementedError(
+            "swapping a pooled state entry (hybrid / cross-attention "
+            "models) is not ported yet: see ROADMAP.md queue 1, 'Still to "
+            "port' (hybrid, cross-attention, MoE and frontends)")
 
 
 def _sample_token(logits: np.ndarray, sp: SamplingParams, rng) -> int:
@@ -98,14 +120,15 @@ def _sample_token(logits: np.ndarray, sp: SamplingParams, rng) -> int:
 @dataclasses.dataclass
 class _PendingStep:
     """An `execute_async` dispatch awaiting its host sync: prefill-sampled
-    tokens are final, decode logits are still on the device."""
+    tokens are final; the decode logits are being copied to the runner's
+    host buffer, so the next replay may overwrite the graph's output."""
     results: dict[int, list[int]]
     entries: list                      # decode entries pending sampling
-    # un-synced decode logits, or None. Under graphs this is the decode
-    # graph's static output, valid until the next replay of either graph
-    # (they share one memory pool): pipelined serving, which dispatches
-    # the next plan before this wait(), must copy it out first.
-    logits: Any = None
+    # host decode logits [B, padded_vocab] (the runner's one buffer: wait()
+    # before the next dispatch), or None; `ready` is the CUDA event that
+    # completes when they have landed (None on the CPU, where they have)
+    logits: torch.Tensor | None = None
+    ready: Any = None
 
 
 class _StepInputs:
@@ -211,10 +234,43 @@ class ModelRunner:
                                        **tables), self.device)}
         self._graphs: dict[str, _Graph] = {}
         self._pool = None               # the graphs' shared memory pool
+        cuda = self.device.type == "cuda"
+        # decode logits land here, by a non-blocking copy on the card
+        self._host_logits = torch.empty((b, cfg.padded_vocab),
+                                        dtype=torch.float32, pin_memory=cuda)
+        # swapped-out contents, request_id -> one {leaf name -> [k_pages,
+        # ...] host tensor (pinned on the card)} per layer (accounting lives
+        # in the scheduler's SwapPool; this is the data half)
+        self._swap_store: dict[int, list[dict[str, torch.Tensor]]] = {}
+        # recorded after the last swap-out's copies to the host; waited on
+        # at wait() / sync()
+        self._swaps_landed = None
+
+    def cache_device_bytes(self) -> tuple[int, int]:
+        """(total, per_device) bytes of the KV caches; equal, on one
+        device. The port's pools and dense caches each hold one trash page
+        (or position) per leaf beyond the JAX package's, where dropped
+        writes land, and they are counted."""
+        total = sum(leaf.numel() * leaf.element_size()
+                    for cache in self.caches for leaf in cache.values())
+        return total, total
+
+    def reset_caches(self) -> None:
+        """Zero every cache leaf in place, trash page or position included
+        (the lockstep prefill contract), and drop swapped page contents:
+        the pages they would restore into no longer exist. The tensors
+        stay the ones the captured graphs read, so the graphs are kept."""
+        for cache in self.caches:
+            for leaf in cache.values():
+                leaf.zero_()
+        self._swap_store.clear()
+        self._swaps_landed = None
 
     def sync(self) -> None:
-        """Block until every queued device write has landed (the fence
-        behind `Telemetry(fence=True)`)."""
+        """Block until every queued device write has landed, pending
+        swap-out bytes included (the fence behind
+        `Telemetry(fence=True)`)."""
+        self._finalize_swaps()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -342,10 +398,18 @@ class ModelRunner:
         return self.wait(self.execute_async(plan))
 
     def execute_async(self, plan: SchedulePlan) -> _PendingStep:
-        """Dispatch one plan; the decode logits are not copied back."""
-        if plan.swap_ins or any(rc.kind == "swap-out"
-                                for rc in plan.reclaims):
-            raise NotImplementedError("swap transfers are not ported")
+        """Enqueue one plan without the final host sync: swap transfers,
+        prefill chunks (whose completion samples are drawn here: the
+        same-step decode needs them on the host) and the decode step, whose
+        logits are copied to the host buffer by a non-blocking copy. The
+        returned `_PendingStep` is redeemed by `wait()`, which must come
+        before the next dispatch; between the two the host is free."""
+        for swap_in in plan.swap_ins:               # 1. restores
+            self._swap_in_pages(swap_in.request_id, swap_in.pages,
+                                swap_in.state_page)
+        for rc in plan.reclaims:                    # 2. gathers
+            if rc.kind == "swap-out":
+                self._swap_out_pages(rc.request_id, rc.pages, rc.state_page)
         results: dict[int, list[int]] = collections.defaultdict(list)
         b = self.scfg.batch_slots
         vocab = self.cfg.vocab_size
@@ -376,7 +440,7 @@ class ModelRunner:
                 if ch.eos_token is not None and tok == ch.eos_token:
                     eos_hit.add(ch.slot)
         entries = [e for e in plan.decode if e.slot not in eos_hit]
-        logits = None
+        host = ready = None
         if entries:
             tokens = np.zeros((b,), np.int32)
             active = np.zeros((b,), bool)
@@ -388,17 +452,97 @@ class ModelRunner:
                                       np.asarray(plan.decode_pos, np.int32),
                                       active, plan.block_tables)
             self.stats["decode_steps"] += 1
+            host = self._host_logits
+            if self.device.type == "cuda":
+                host.copy_(logits[:, 0], non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host.copy_(logits[:, 0])
         return _PendingStep(results=dict(results), entries=entries,
-                            logits=logits)
+                            logits=host, ready=ready)
 
     def wait(self, pending: _PendingStep) -> dict[int, list[int]]:
-        """The host sync for one dispatched step: copy the decode logits
-        to the host and draw the decode tokens in plan entry order."""
+        """The host sync for one dispatched step: land pending swap-out
+        bytes and the decode logits, and draw the decode tokens in plan
+        entry order (the rng stream of the synchronous path)."""
+        self._finalize_swaps()
         if pending.logits is not None:
-            vocab = self.cfg.vocab_size
-            rows = pending.logits[:, 0, :vocab].cpu().numpy()
+            if pending.ready is not None:
+                pending.ready.synchronize()
+            rows = pending.logits[:, :self.cfg.vocab_size].numpy()
             for e in pending.entries:
                 tok = _sample_token(rows[e.slot], e.sampling, e.rng)
                 pending.results.setdefault(e.slot, []).append(tok)
             pending.logits = None
         return pending.results
+
+    # ------------------------------------------------------------------
+    # page swap transfers (the data half of swap-out preemption)
+    # ------------------------------------------------------------------
+    def _page_index(self, pages) -> torch.Tensor:
+        """Page ids as an int64 tensor on the device, sent from pinned
+        memory on the card so that the copy does not wait for the queue."""
+        idx = torch.from_numpy(np.asarray(pages, np.int64))
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
+
+    def _swap_out_pages(self, request_id: int, pages: tuple,
+                        state_page: int = -1) -> None:
+        """Gather a victim's pages from every pool leaf (k_bits + v, or the
+        fp k + v) with one `index_select` each, on the current stream ahead
+        of the plan's replays: stream order snapshots the pre-recycle
+        contents. On the card each gather then goes to pinned host memory
+        by a non-blocking copy; the host waits for the bytes at the next
+        `wait()` / `sync()`."""
+        _refuse_state_page(state_page)
+        idx = self._page_index(pages)
+        cuda = self.device.type == "cuda"
+        stored, nbytes = [], 0
+        for cache in self.caches:
+            taken = {}
+            for name, leaf in cache.items():
+                part = leaf.index_select(0, idx)        # [k, ...]
+                if cuda:
+                    host = torch.empty(part.shape, dtype=part.dtype,
+                                       pin_memory=True)
+                    host.copy_(part, non_blocking=True)
+                    part = host
+                taken[name] = part
+                nbytes += part.numel() * part.element_size()
+            stored.append(taken)
+        if cuda:
+            self._swaps_landed = torch.cuda.Event()
+            self._swaps_landed.record()
+        self._swap_store[request_id] = stored
+        self.stats["swap_out_bytes"] += nbytes
+        if self.telemetry is not None:
+            self.telemetry.on_swap_bytes(request_id, out=nbytes)
+
+    def _finalize_swaps(self) -> None:
+        """The blocking half of the swap-out copies, deferred to the
+        step's sync point: the host enqueues the whole step before it
+        waits for them."""
+        if self._swaps_landed is not None:
+            self._swaps_landed.synchronize()
+            self._swaps_landed = None
+
+    def _swap_in_pages(self, request_id: int, pages: tuple,
+                       state_page: int = -1) -> None:
+        """Scatter a swapped request's stored pages into its freshly
+        allocated device pages with `index_copy_`, in place (the captured
+        graphs read these tensors): the exact inverse of the gather, so
+        the request resumes bit for bit with nothing re-prefilled."""
+        _refuse_state_page(state_page)
+        stored = self._swap_store.pop(request_id)
+        idx = self._page_index(pages)
+        nbytes = 0
+        for cache, taken in zip(self.caches, stored):
+            for name, blob in taken.items():
+                cache[name].index_copy_(
+                    0, idx, blob.to(self.device, non_blocking=True))
+                nbytes += blob.numel() * blob.element_size()
+        self.stats["swap_in_bytes"] += nbytes
+        if self.telemetry is not None:
+            self.telemetry.on_swap_bytes(request_id, in_=nbytes)

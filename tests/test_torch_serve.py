@@ -10,7 +10,9 @@ its own serving tests do. Also, inside the port: ragged == sequential
 (with prefix caching, page-sparse decode and recompute preemption), dense
 == paged bit for bit, the unported features raising, the default device
 refusing to fall back to the CPU, and the package importing no JAX. The
-full-precision baseline's tests are in test_torch_baseline.py.
+full-precision baseline's tests are in test_torch_baseline.py; swap-out
+preemption's in test_torch_swap.py; pipelined and asyncio serving's, and
+the rest of the Engine surface's, in test_torch_pipelined.py.
 """
 import dataclasses
 import functools
@@ -443,7 +445,7 @@ def test_copied_scheduler_plans_equal_reference(kw, reclaims):
 # what this slice refuses, and how it picks the device
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(swap_pages=8), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_serving_features_raise(kw):
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -454,10 +456,6 @@ def test_unported_layer_patterns_raise():
     cfg = get_config("mamba2-130m", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.Transformer(cfg)
-    _, tcfg = _cfgs()
-    eng = Engine(tcfg, _model(), _scfg(ServeConfig, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.step_pipelined()
 
 
 @pytest.mark.parametrize("flags", [[], ["--paged"], ["--page-topn", "1"],
