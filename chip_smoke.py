@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs five phases; any failure exits non-zero before the result line.
+runs six phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -36,6 +36,14 @@ runs five phases; any failure exits non-zero before the result line.
    baseline's attention (``core.attention.standard_attention``, no
    kernel of its own) against ``F.scaled_dot_product_attention`` at a
    decode step and a 512-query prefill chunk; it is not a kernel record.
+   Then six more records at llama-3.2-vision-11b's serving shapes (d =
+   128 -> 4 words, 32 heads over 8 kv heads, bf16 V of width 128, top-N
+   479; phase 6's path): K1 causal over a 4096-position table, K1
+   non-causal over the 1601 image keys of a cross layer (every query of
+   every slot live), K2 at ~2k-token rows, K3 on K2's pools (exact at
+   n_sel 64 and 255), K4 over the 1601-key cross cache and K4 over a
+   dense engine's 4097-position self-attention cache at K2's lengths;
+   the two cross kernels are also checked at nsel 2000 > T.
 3. Cross-device: smollm-135m widths at 2 layers in float32, the same
    seeded weights on the CPU (plain versions) and on the card (kernels):
    first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
@@ -45,7 +53,13 @@ runs five phases; any failure exits non-zero before the result line.
    Then, on the card, the CUDA-graph step against the eager step
    (``Engine(eager=True)``): logits of a prefill + decode sequence and
    greedy tokens equal bit for bit, binary and full precision, paged,
-   dense and page-sparse.
+   dense and page-sparse. Then the same at llama-3.2-vision-11b's widths:
+   one AAAAC group, float32, the vocabulary cut to 16384, one image
+   request and one text-only request; binary paths compared on the
+   card's packed bits (`bits_tape`: float32 rounding flips a few sign
+   bits of near-zero values between the devices at these widths, which
+   alone moves logits far past the tolerance), paged with pooled cross
+   state and dense, binary and fp, graph == eager bit for bit.
 4. The slice at full size: smollm-135m, all 30 layers, bf16, seeded
    random weights, prefill chunks of 512, 4 slots, 8 staggered requests
    with 512-3072-token prompts and 32 new tokens each, max_len 4096
@@ -77,10 +91,23 @@ runs five phases; any failure exits non-zero before the result line.
    tok/s, ITL, TTFT and the overlap fraction; (c) the asyncio front end
    (`AsyncEngine`) from a fresh engine's first step, streamed tokens equal
    to the results, then warm beside the pipelined and the sync step.
+6. llama-3.2-vision-11b as published (40 layers, 8 of them cross
+   attention, bf16, 9.78 B parameters drawn on the card from seed 0),
+   4 slots, 512-token chunks, 16-token pages, max_len 4096, 8 requests
+   of 512-2048 tokens arriving as in phase 4, images [1, 1601, 1280] on
+   requests 0, 2, 4 and 6, 16 new tokens each: paged (cross caches in a
+   pooled state allocation), dense, page_topn 255, fp paged and a
+   200-page pool with a host pool (swap-out preemption). Each engine
+   holds 2 graphs; K1 runs 40 times a chunk (8 of them non-causal), a
+   paged decode step K2 32 and K4 8 times (K3 32 with page_topn), a
+   dense step K4 40 (8 tagged cross), fp none, as the wrappers count;
+   dense, page_topn-255 and swap tokens equal paged's bit for bit; every
+   swap moves the victim's state entry; every pool drains.
 
 `--profile DIR` then profiles the prefill of one 3072-token prompt and
 decode windows of the paged, the dense, the full-precision paged and the
-page_topn-64 engine (the last unfused and fused in turn), all graphed.
+page_topn-64 engine (the last unfused and fused in turn), all graphed,
+and a decode window of phase 6's paged vision engine.
 Then the kernel record line and, last, the result line.
 """
 from __future__ import annotations
@@ -106,6 +133,14 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 TOL = dict(atol=1e-5, rtol=1e-4)
 K5_INT8 = "hamming_score_int8"     # K5's int8 method's own record
 CROSS_TOL = dict(atol=2e-3, rtol=2e-3)
+VISION = "llama-3.2-vision-11b"
+# phase 2's records at the vision model's serving shapes (phase 6's path)
+K1_VISION = "binary_prefill_attention[vision causal]"
+K1_CROSS = "binary_prefill_attention[vision cross]"
+K2_VISION = "binary_paged_decode_attention[vision]"
+K3_VISION = "binary_page_score[vision]"
+K4_CROSS = "binary_decode_attention[vision cross]"
+K4_VISION = "binary_decode_attention[vision self]"
 
 
 def log(msg: str) -> None:
@@ -275,26 +310,9 @@ def _prefill_case(gen, lens):
 
 
 def _prefill_work(q, k, kvl, qoff, qlen):
-    """(bytes, ops) the prefill function needs for these inputs: the
-    scores of the valid pairs on the CUDA cores, E.V of the kept pairs and
-    their sum(E) (a column of ones) on the bf16 tensor cores, three bf16
-    products a multiply-add (E as e0 + e1 + e2)."""
-    import torch
-    from repro_torch.core import hamming, topn
-    kb = torch.repeat_interleave(k, G, dim=0)
-    s = hamming.binary_scores(q, kb, D)                     # [BH, S, T]
-    qi = torch.arange(CHUNK, device="cuda")[None, :, None]
-    kp = torch.arange(T_MAX, device="cuda")[None, None, :]
-    valid = ((kp < kvl[:, None, None]) & (kp <= qoff[:, None, None] + qi)
-             & (qi < qlen[:, None, None]))
-    keep = topn.topn_mask_binary(s, NSEL, D, valid=valid)
-    kv_keys = valid.reshape(B * HK, G * CHUNK, T_MAX).any(1).sum().item()
-    v_keys = keep.reshape(B * HK, G * CHUNK, T_MAX).any(1).sum().item()
-    n_valid, n_kept = valid.sum().item(), keep.sum().item()
-    nbytes = (qlen.sum().item() * W * 4 + kv_keys * W * 4 + v_keys * DV * 2
-              + B * H * CHUNK * DV * 4 + 3 * B * H * 4)
-    return nbytes, [(n_valid * (2 * W + 2), CUDA_CORE_OPS_PER_S),
-                    (3 * n_kept * 2 * (DV + 1), BF16_TENSOR_OPS_PER_S)]
+    """(bytes, ops) the prefill function needs for these inputs at phase
+    2's shapes (see `_k1_work`)."""
+    return _k1_work(q, k, DV, kvl, qoff, qlen, d=D, nsel=NSEL, causal=True)
 
 
 def _paged_case(gen, lengths):
@@ -315,21 +333,13 @@ def _paged_case(gen, lengths):
 
 
 def _decode_work(q, k_rows, lens, index_bytes):
-    """(bytes, ops) top-N decode needs for these inputs: q [B, H, W],
-    k_rows [B, Hk, T, W] row-major, lens [B]; index_bytes of block tables
-    and counts (paged) or lengths (dense)."""
-    import torch
-    from repro_torch.core import hamming, topn
-    s = hamming.binary_scores(q.reshape(B, HK, G, W), k_rows, D)
-    valid = (torch.arange(k_rows.shape[2], device="cuda")[None, None, None]
-             < lens[:, None, None, None]).expand_as(s)
-    keep = topn.topn_mask_binary(s, NSEL, D, valid=valid)
-    n_keys = lens.sum().item() * HK
-    v_keys = keep.any(2).sum().item()
-    nbytes = (B * H * W * 4 + n_keys * W * 4 + v_keys * DV * 2
-              + index_bytes + B * H * DV * 4)
-    nops = keep.sum().item() * (2 * DV + 1) + n_keys * G * (2 * W + 2)
-    return nbytes, [(nops, CUDA_CORE_OPS_PER_S)]
+    """(bytes, ops) top-N decode needs for these inputs at phase 2's
+    shapes: q [B, H, W], k_rows [B, Hk, T, W] row-major, lens [B]; index
+    bytes of block tables and counts (paged) or lengths (dense); see
+    `_decode_rows_work`."""
+    return _decode_rows_work(
+        q.reshape(B * HK, G, W), k_rows.reshape(B * HK, -1, W),
+        lens.repeat_interleave(HK), index_bytes, d=D, nsel=NSEL, dv=DV)
 
 
 def _paged_work(q, k_pool, bt, lens):
@@ -453,6 +463,7 @@ def phase2() -> dict:
     records.update(_phase2_k4(gen))
     records.update(_phase2_k5(gen))
     _phase2_fp(gen)
+    records.update(_phase2_vision(gen))
     return records
 
 
@@ -711,6 +722,279 @@ def _phase2_fp(gen) -> None:
             f"call")
 
 
+# llama-3.2-vision-11b serving shapes: d = 128 -> 4 words, 32 heads over 8
+# kv heads (4 query heads each), bf16 V of width 128, 4 slots, 512-token
+# chunks, 16-token pages over 4096-position tables, 1601 image keys a
+# cross layer, top-N 479 (max_len 4096)
+VB, VH, VHK, VD, V_IMG = 4, 32, 8, 128, 1601
+VG, VW, VDV = VH // VHK, VD // 32, VD
+V_SCALE = VD ** -0.5              # sigma_q = sigma_k = 1
+
+
+def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal):
+    """(bytes, ops) the prefill function needs for these inputs, from
+    their shapes: q [BH, S, W], k [BHk, T, W], V width dv, per-row
+    kv_length / q_offset / q_length. Bytes: the live queries' words, the
+    keys some live query may use (words) and the kept ones' V (bf16),
+    the float32 output. Operations: the scores of the valid pairs on the
+    CUDA cores, E.V of the kept pairs and their sum(E) (a column of ones)
+    on the bf16 tensor cores, three bf16 products a multiply-add (E as
+    e0 + e1 + e2)."""
+    import torch
+    from repro_torch.core import hamming, topn
+    bh, s, w = q.shape
+    bhk, t, _ = k.shape
+    g = bh // bhk
+    sc = hamming.binary_scores(q, torch.repeat_interleave(k, g, dim=0), d)
+    qi = torch.arange(s, device="cuda")[None, :, None]
+    kp = torch.arange(t, device="cuda")[None, None, :]
+    valid = (kp < kvl[:, None, None]) & (qi < qlen[:, None, None])
+    if causal:
+        valid = valid & (kp <= qoff[:, None, None] + qi)
+    keep = topn.topn_mask_binary(sc, nsel, d, valid=valid)
+    kv_keys = valid.reshape(bhk, g * s, t).any(1).sum().item()
+    v_keys = keep.reshape(bhk, g * s, t).any(1).sum().item()
+    n_valid, n_kept = valid.sum().item(), keep.sum().item()
+    nbytes = (qlen.sum().item() * w * 4 + kv_keys * w * 4 + v_keys * dv * 2
+              + bh * s * dv * 4 + 3 * bh * 4)
+    return nbytes, [(n_valid * (2 * w + 2), CUDA_CORE_OPS_PER_S),
+                    (3 * n_kept * 2 * (dv + 1), BF16_TENSOR_OPS_PER_S)]
+
+
+def _decode_rows_work(q, k_rows, lens, index_bytes, *, d, nsel, dv):
+    """(bytes, ops) top-N decode needs for these inputs: q [R, G, W],
+    k_rows [R, T, W] row-major, lens [R] valid keys a row; index_bytes of
+    tables and counts, or lengths. Bytes: queries, every valid key's
+    words, the kept keys' V (bf16), the indices, the float32 output;
+    operations on the CUDA cores: the scores and the kept keys' E.V."""
+    import torch
+    from repro_torch.core import hamming, topn
+    r, g, w = q.shape
+    s = hamming.binary_scores(q, k_rows, d)                 # [R, G, T]
+    valid = (torch.arange(k_rows.shape[1], device="cuda")[None, None]
+             < lens[:, None, None]).expand_as(s)
+    keep = topn.topn_mask_binary(s, nsel, d, valid=valid)
+    n_keys = lens.sum().item()
+    nbytes = (r * g * w * 4 + n_keys * w * 4
+              + keep.any(1).sum().item() * dv * 2 + index_bytes
+              + r * g * dv * 4)
+    nops = keep.sum().item() * (2 * dv + 1) + n_keys * g * (2 * w + 2)
+    return nbytes, [(nops, CUDA_CORE_OPS_PER_S)]
+
+
+def _phase2_vision(gen) -> dict:
+    """K1, K2, K3 and K4 at llama-3.2-vision-11b's serving shapes (phase
+    6's path), each against its plain version at phase 2's tolerances,
+    timed by CUDA events (K3 by device time), with its bound and host
+    time: K1 causal, slot 0's last 512-query chunk of a 2048-token prompt
+    over the 4096-position table, the other slots idle (a self-attention
+    layer's chunk); K1 non-causal over the 1601 image keys, every query
+    of every slot live (a cross layer's chunk: the JAX step passes no
+    q_length there); K2 over 4 slots at ragged ~2k lengths; K3, the fused
+    page select, on K2's pools, exact at n_sel 64 (it selects) and 255
+    (phase 6's page_topn, which keeps every resident page), timed at 255;
+    K4 over the 1601-key cross cache (a cross layer's decode step, paged
+    engine or not); K4 over a dense engine's self-attention cache (4097
+    positions: max_len and its trash position) at K2's lengths. The two
+    cross kernels are also checked at nsel 2000, past the 1601 keys."""
+    import torch
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ops, ref
+    records = {}
+    t_tab = NB * PAGE
+
+    def per_row(vals):
+        return torch.tensor(vals, dtype=torch.int32,
+                            device="cuda").repeat_interleave(VH)
+
+    cases = {
+        K1_VISION: (t_tab, True, per_row([1536, 0, 0, 0]),
+                    per_row([512, 0, 0, 0])),
+        K1_CROSS: (V_IMG, False, per_row([1536, 512, 0, 1000]),
+                   per_row([CHUNK] * VB))}
+    for name, (t, causal, qoff, qlen) in cases.items():
+        q = _bits((VB * VH, CHUNK, VD), gen)
+        k = _bits((VB * VHK, t, VD), gen)
+        v = torch.randn((VB * VHK, t, VDV), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kvl = qoff + qlen if causal else torch.full_like(qoff, t)
+        err = 0.0
+        for nsel in (NSEL, 2000) if not causal else (NSEL,):
+            kw = dict(d=VD, nsel=nsel, scale=V_SCALE, kv_length=kvl,
+                      q_offset=qoff, q_length=qlen, causal=causal)
+            got = pre.prefill_attention(q, k, v, group_size=VG,
+                                        n_kv_heads=VHK, **kw)
+            want = ref.prefill_attention_ref(q, k, v, group_size=VG, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            e = (got - want).abs().max().item()
+            err = max(err, e) if nsel == NSEL else err
+            log(f"phase 2: {name} nsel {nsel} max_abs_err {e:.3e}")
+            del got, want
+        kw = dict(d=VD, nsel=NSEL, scale=V_SCALE, kv_length=kvl,
+                  q_offset=qoff, q_length=qlen, causal=causal)
+
+        def k1():
+            return pre.prefill_attention(q, k, v, group_size=VG,
+                                         n_kv_heads=VHK, **kw)
+        ms = cuda_ms(k1, iters=20)
+        plain_ms = cuda_ms(lambda: ref.prefill_attention_ref(
+            q, k, v, group_size=VG, **kw), iters=2, warmup=1)
+        work = _k1_work(q, k, VDV, kvl, qoff, qlen, d=VD, nsel=NSEL,
+                        causal=causal)
+        records[name] = _record(
+            pre, "src/repro/kernels/binary_prefill_attention.py:106", err,
+            ms, plain_ms, work, host_us(k1), name=name)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # K2: four decoding slots of a self-attention layer, shuffled pages
+    n_pages = VB * NB
+    lens = torch.tensor([2063, 1030, 1790, 527], dtype=torch.int32,
+                        device="cuda")
+    qd = _bits((VB, VH, VD), gen)
+    k_pool = _bits((n_pages + 1, VHK, PAGE, VD), gen).transpose(-1, -2) \
+        .contiguous()
+    v_pool = torch.randn((n_pages + 1, VHK, PAGE, VDV), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    bt = torch.randperm(n_pages, generator=gen, device="cuda").reshape(
+        VB, NB).to(torch.int32)
+    bt = torch.where(torch.arange(NB, device="cuda")[None]
+                     < ((lens + PAGE - 1) // PAGE)[:, None], bt, -1)
+    kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
+    got = ops.paged_decode_attention(qd, k_pool, v_pool, bt, lengths=lens,
+                                     **kw)
+    want = ref.paged_decode_attention_ref(
+        qd.reshape(VB, VHK, VG, VW), k_pool, v_pool, bt, lengths=lens,
+        **kw).reshape(VB, VH, VDV)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    err = (got - want).abs().max().item()
+    log(f"phase 2: {K2_VISION} lengths {lens.tolist()} max_abs_err "
+        f"{err:.3e}")
+    bt_rows, counts, len_f = ops._row_tables(bt, lens, VHK, PAGE)
+    qf = qd.reshape(VB * VHK, VG, VW).contiguous()
+
+    def k2():
+        return pdec.paged_decode_attention(qf, k_pool, v_pool, bt_rows,
+                                           counts, **kw)
+    ms = cuda_ms(k2, iters=200)
+    plain_ms = cuda_ms(lambda: ref.paged_decode_attention_rows_ref(
+        qf, k_pool, v_pool, bt_rows, counts, **kw), iters=5, warmup=1)
+    from repro_torch.models.attention_block import gather_pages
+    k_rows = gather_pages(k_pool, bt.clamp_min(0), 3).transpose(-1, -2) \
+        .reshape(VB * VHK, NB * PAGE, VW)
+    work = _decode_rows_work(qf, k_rows, lens.repeat_interleave(VHK),
+                             2 * VB * VHK * NB * 4, d=VD, nsel=NSEL, dv=VDV)
+    records[K2_VISION] = _record(
+        pdec, "src/repro/kernels/binary_paged_decode_attention.py:109", err,
+        ms, plain_ms, work, host_us(k2), name=K2_VISION)
+    records[K3_VISION] = _phase2_vision_k3(qf, k_pool, bt_rows, counts,
+                                           len_f)
+    del k_pool, v_pool, k_rows
+
+    # K4 over a dense engine's self-attention cache at K2's lengths
+    r, t_dense = VB * VHK, t_tab + 1
+    qd = _bits((r, VG, VD), gen)
+    k = _bits((r, t_dense, VD), gen)
+    planes = k.transpose(-1, -2).contiguous()
+    v = torch.randn((r, t_dense, VDV), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    len_f = lens.repeat_interleave(VHK)
+    kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
+    got = dec.decode_attention(qd, planes, v, len_f, **kw)
+    want = ref.decode_attention_ref(qd, k, v, lengths=len_f, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    err = (got - want).abs().max().item()
+    log(f"phase 2: {K4_VISION} T {t_dense} lengths {lens.tolist()} "
+        f"max_abs_err {err:.3e}")
+
+    def k4_self():
+        return dec.decode_attention(qd, planes, v, len_f, **kw)
+    ms = cuda_ms(k4_self, iters=200)
+    plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
+        qd, k, v, lengths=len_f, **kw), iters=5, warmup=1)
+    work = _decode_rows_work(qd, k, len_f, r * 4, d=VD, nsel=NSEL, dv=VDV)
+    records[K4_VISION] = _record(
+        dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
+        plain_ms, work, host_us(k4_self), name=K4_VISION)
+    del k, planes, v
+
+    # K4 over the cross cache: every slot's 8 kv heads, all 1601 keys valid
+    r = VB * VHK
+    qd = _bits((r, VG, VD), gen)
+    k = _bits((r, V_IMG, VD), gen)
+    planes = k.transpose(-1, -2).contiguous()
+    v = torch.randn((r, V_IMG, VDV), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    len_f = torch.full((r,), V_IMG, dtype=torch.int32, device="cuda")
+    err = 0.0
+    for nsel in (NSEL, 2000):
+        kw = dict(d=VD, nsel=nsel, scale=V_SCALE)
+        got = dec.decode_attention(qd, planes, v, len_f, **kw)
+        want = ref.decode_attention_ref(qd, k, v, lengths=len_f, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        e = (got - want).abs().max().item()
+        err = max(err, e) if nsel == NSEL else err
+        log(f"phase 2: {K4_CROSS} nsel {nsel} max_abs_err {e:.3e}")
+    kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
+
+    def k4():
+        return dec.decode_attention(qd, planes, v, len_f, **kw)
+    ms = cuda_ms(k4, iters=200)
+    plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
+        qd, k, v, lengths=len_f, **kw), iters=5, warmup=1)
+    work = _decode_rows_work(qd, k, len_f, r * 4, d=VD, nsel=NSEL, dv=VDV)
+    records[K4_CROSS] = _record(
+        dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
+        plain_ms, work, host_us(k4), name=K4_CROSS)
+    return records
+
+
+def _phase2_vision_k3(qf, k_pool, bt_rows, counts, len_f) -> dict:
+    """K3 on the vision K2 case's pools: bounds, tables, counts and
+    logical ids equal the plain version's exactly at n_sel 64 and 255;
+    timed by device time at 255, phase 6's page_topn."""
+    import torch
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import ref
+    want_s = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts, d=VD)
+    for n_sel in (64, 255):
+        scores = torch.empty_like(want_s)
+        got = pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
+                                        d=VD, page=PAGE, n_sel=n_sel,
+                                        scores_out=scores)
+        want = ref.paged_select_pages_ref(qf, k_pool, bt_rows, counts, len_f,
+                                          d=VD, page=PAGE, n_sel=n_sel)
+        torch.cuda.synchronize()
+        check(torch.equal(scores, want_s), f"{K3_VISION} bounds {n_sel}")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{K3_VISION} tables/counts/logical n_sel {n_sel}")
+        log(f"phase 2: {K3_VISION} n_sel {n_sel} exact (bounds, tables, "
+            f"counts, logical; {int((counts > 0).sum())} listed pages, "
+            f"{int((want[1] > 0).sum())} kept)")
+    n_sel = 255
+
+    def k3():
+        return pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
+                                         d=VD, page=PAGE, n_sel=n_sel)
+    ms = device_ms(k3)
+    plain_ms = cuda_ms(lambda: ref.paged_select_pages_ref(
+        qf, k_pool, bt_rows, counts, len_f, d=VD, page=PAGE, n_sel=n_sel),
+        iters=10, warmup=2)
+    r, nb = bt_rows.shape
+    n_keys = len_f.sum().item()
+    work = (r * VG * VW * 4 + n_keys * VW * 4 + 2 * r * nb * 4 + r * 4
+            + 3 * r * n_sel * 4,
+            [(n_keys * VW * 2 + r * nb * VG * VW * 6, CUDA_CORE_OPS_PER_S)])
+    return _record(pscore, "src/repro/kernels/binary_page_score.py:68", 0.0,
+                   ms, plain_ms, work, host_us(k3), name=K3_VISION)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same weights on the CPU and on the card
 # ---------------------------------------------------------------------------
@@ -721,31 +1005,49 @@ def _engine(cfg, model, scfg_kw, device, telemetry=None, eager=False):
                   device=device, eager=eager)
 
 
-def _graph_vs_eager(cfg, model, scfg, prompts) -> None:
+def _generate(eng, prompts, extras, gen: int):
+    """Greedy tokens [R, gen] of `prompts` through the engine, each with
+    its extra inputs (or None)."""
+    import numpy as np
+    ids = [eng.submit(p, max_new_tokens=gen, extra=e)
+           for p, e in zip(prompts, extras)]
+    out = eng.run()
+    return np.stack([out[i] for i in ids])
+
+
+def _graph_vs_eager(cfg, model, scfg, prompts, extras=None) -> None:
     """On the card, the CUDA-graph step against the eager step of one
     engine configuration: the logits of two prefill chunks (one slot
-    each, the other idle) and three decode steps through the runners'
+    each, the other idle; the first with slot 0's image when `extras`
+    gives prompt 0 one) and three decode steps through the runners'
     low-level steps, and greedy tokens through the Engine, equal bit for
     bit."""
     import numpy as np
     import torch
+    from repro_torch.serve.runner import _chunk_extra
+    extras = extras or [None] * len(prompts)
     rng = np.random.default_rng(2)
     nb = scfg["max_len"] // scfg["page_size"]
     bt = (np.arange(2 * nb, dtype=np.int32)[::-1].reshape(2, nb).copy()
           if scfg.get("paged") else None)
+    st = np.array([1, 0], np.int32)       # ignored without cross layers
     chunk = scfg["prefill_chunk"]
     steps = []
     for slot, nv in ((0, chunk), (1, 41)):
         tok = np.zeros((2, chunk), np.int32)
         tok[slot, :nv] = rng.integers(0, cfg.vocab_size, nv)
+        extra = (_chunk_extra(extras[0], nv, 0, nv, chunk)
+                 if slot == 0 else None)
         steps.append(("prefill", (tok, np.zeros(2, np.int32),
                                   np.arange(2) == slot,
                                   np.where(np.arange(2) == slot, nv,
-                                           0).astype(np.int32), bt)))
+                                           0).astype(np.int32), bt, st,
+                                  extra, np.array([slot]))))
     for i in range(3):
         steps.append(("decode", (
             rng.integers(0, cfg.vocab_size, 2).astype(np.int32),
-            np.array([chunk + i, 41 + i], np.int32), np.ones(2, bool), bt)))
+            np.array([chunk + i, 41 + i], np.int32), np.ones(2, bool), bt,
+            st)))
     logits, tokens = [], []
     for eager in (True, False):
         runner = _engine(cfg, model, scfg, "cuda", eager=eager).runner
@@ -754,8 +1056,8 @@ def _graph_vs_eager(cfg, model, scfg, prompts) -> None:
              runner.decode_step)(*args).clone() for kind, args in steps])
         check(runner.graph_count() == (0 if eager else 2),
               runner.graph_count())
-        tokens.append(_engine(cfg, model, scfg, "cuda",
-                              eager=eager).generate(prompts, 8))
+        tokens.append(_generate(_engine(cfg, model, scfg, "cuda",
+                                        eager=eager), prompts, extras, 8))
     check(all(torch.equal(a, b) for a, b in zip(*logits)),
           ("graph logits != eager logits", scfg))
     check((tokens[0] == tokens[1]).all(), ("graph tokens != eager", scfg))
@@ -826,6 +1128,163 @@ def phase3() -> None:
             f"bit")
 
 
+V3_VOCAB = 16384       # phase 3's vision vocabulary, cut from 128256
+
+
+@contextlib.contextmanager
+def bits_tape(tape: list, replay: bool):
+    """Every `hamming.pack_bits` call of the serving path (queries, keys,
+    image keys) either appends its packed words to `tape` (on the host),
+    or, with `replay`, returns the tape's words in call order instead of
+    its own, counting the words where its own differ. Sign bits of float32
+    values within rounding of zero differ between the CPU's and the card's
+    GEMMs; replaying the card's bits on the CPU holds everything after
+    the binarization, the kernels included, to the plain versions. A
+    replay fails if more than max(16, 1 in 10000) of the words differ:
+    the projections, RoPE and the fills before the binarization are held
+    too (3 of ~200k words differed at phase 3's shapes on an H100)."""
+    from repro_torch.core import hamming
+    own = hamming.pack_bits
+    seen = {"calls": 0, "words": 0, "differ": 0}
+
+    def record(x):
+        out = own(x)
+        tape.append(out.cpu())
+        return out
+
+    def play(x):
+        mine = own(x)
+        want = tape[seen["calls"]].to(mine.device)
+        check(want.shape == mine.shape, ("bits tape out of step",
+                                         want.shape, mine.shape))
+        seen["calls"] += 1
+        seen["words"] += mine.numel()
+        seen["differ"] += int((mine != want).sum())
+        return want
+
+    hamming.pack_bits = play if replay else record
+    try:
+        yield seen
+    finally:
+        hamming.pack_bits = own
+    if replay:
+        check(seen["calls"] == len(tape), "bits tape not used up")
+        check(seen["differ"] <= max(16, seen["words"] // 10000),
+              ("the CPU's bits differ from the card's in more words than "
+               "float32 rounding flips", seen))
+
+
+def phase3_vision() -> None:
+    """Phase 3 at llama-3.2-vision-11b's widths: one group of its 5 layers
+    (AAAAC), float32, the vocabulary cut to V3_VOCAB so that the CPU twin
+    stays small; seeded weights drawn on the CPU and copied to the card.
+    At these widths float32 rounding flips sign bits of near-zero queries
+    and keys between the CPU's and the card's GEMMs, each flip moving a
+    query's whole score row, so the binary runs are compared on the
+    card's bits (`bits_tape`): the card records them, the CPU replays
+    them and counts the words of its own that differ. First-step logits
+    (a 64-token chunk of two slots, each with its own seeded [1601, 1280]
+    image) allclose at CROSS_TOL on the paged cache with pooled cross
+    state and on the dense cache, binary (on the card's bits; the
+    difference on the CPU's own bits is printed) and fp; greedy tokens of
+    an image request and a text-only one equal on both devices on those
+    four paths (binary: the card's eager step recorded, the CPU
+    replaying); and on the card, graph == eager bit for bit on the four."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(VISION, n_layers=5, param_dtype="float32",
+                     vocab_size=V3_VOCAB)
+    t0 = time.perf_counter()
+    cpu_model = T.init_params(cfg, torch.Generator().manual_seed(2))
+    gpu_model = T.Transformer(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.refresh_scales()
+    log(f"phase 3 [vision]: {cfg.name} widths, layers {cfg.layer_pattern}, "
+        f"float32, vocabulary cut to {cfg.vocab_size} (of 128256), weights "
+        f"drawn on the CPU and copied in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(3)
+    img = rng.standard_normal((2, cfg.n_image_tokens, cfg.frontend_dim),
+                              dtype=np.float32)
+    chunk = 64
+    tok = rng.integers(0, cfg.vocab_size, (2, chunk)).astype(np.int32)
+    args = dict(pos=np.array([0, 0], np.int32),
+                active=np.array([True, True]),
+                n_valid=np.array([chunk, 41], np.int32))
+    caches = {"paged": (dict(paged=True, n_pages=8, page_size=16,
+                             state_pages=2),
+                        np.array([[2, 5, 0, 6], [1, 3, 7, -1]], np.int32),
+                        np.array([1, 0], np.int32)),
+              "dense": (dict(paged=False, batch=2, max_len=chunk), None,
+                        None)}
+
+    def first_step(model, dev, cache_kw, bt, st, binary):
+        def put(x):
+            return None if x is None else torch.from_numpy(x).to(dev)
+        return T.serve_step(
+            model, put(tok), T.init_caches(cfg, device=dev, binary=binary,
+                                           **cache_kw),
+            n=16, logits_mode="last", binary=binary, block_tables=put(bt),
+            state_tables=put(st), image_embeds=put(img),
+            **{k: put(v) for k, v in args.items()}).cpu()
+
+    for kind, (cache_kw, bt, st) in caches.items():
+        for binary in (True, False):
+            tape: list = []
+            with bits_tape(tape, replay=False):
+                gpu = first_step(gpu_model, "cuda", cache_kw, bt, st, binary)
+            own = first_step(cpu_model, "cpu", cache_kw, bt, st, binary)
+            note = ""
+            cpu = own
+            if binary:
+                with bits_tape(tape, replay=True) as seen:
+                    cpu = first_step(cpu_model, "cpu", cache_kw, bt, st,
+                                     binary)
+                note = (f" on the card's bits ({seen['differ']} of "
+                        f"{seen['words']} words of the CPU's own differ; on "
+                        f"its own bits max_abs_diff "
+                        f"{(own - gpu).abs().max().item():.3e})")
+            diff = (cpu - gpu).abs().max().item()
+            torch.testing.assert_close(gpu, cpu, **CROSS_TOL)
+            log(f"phase 3 [vision]: first-step logits with images ({kind} "
+                f"cache, {'binary' if binary else 'fp'}) cpu vs cuda "
+                f"max_abs_diff {diff:.3e}" + note)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 41)]
+    extras = [{"image_embeds": img[:1]}, None]
+    scfg = dict(max_len=160, batch_slots=2, prefill_chunk=64, paged=True,
+                page_size=16)
+    paths = (("paged", {}), ("dense", dict(paged=False)),
+             ("fp paged", dict(binary=False)),
+             ("fp dense", dict(binary=False, paged=False)))
+    for kind, kw in paths:
+        sc = dict(scfg, **kw)
+        tape: list = []
+        with bits_tape(tape, replay=False):
+            gpu = _generate(_engine(cfg, gpu_model, sc, "cuda", eager=True),
+                            prompts, extras, 8)
+        note = ""
+        if sc.get("binary", True):
+            # both eager: the CPU's warm-up of a step kind would add calls
+            with bits_tape(tape, replay=True) as seen:
+                cpu = _generate(_engine(cfg, cpu_model, sc, "cpu",
+                                        eager=True), prompts, extras, 8)
+            note = (f" (on the card's bits; {seen['differ']} of "
+                    f"{seen['words']} words of the CPU's own differ)")
+        else:
+            cpu = _generate(_engine(cfg, cpu_model, sc, "cpu"), prompts,
+                            extras, 8)
+        check((cpu == gpu).all(), (kind, cpu, gpu))
+        log(f"phase 3 [vision]: greedy tokens, an image request and a "
+            f"text-only one ({kind}), equal on cpu and cuda{note}: "
+            f"{gpu.tolist()}")
+        _graph_vs_eager(cfg, gpu_model, sc, prompts, extras)
+        log(f"phase 3 [vision]: CUDA graphs == eager step ({kind}): logits "
+            f"of 2 prefill chunks (an image in the first) + 3 decode steps "
+            f"and greedy tokens, bit for bit")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice at full size
 # ---------------------------------------------------------------------------
@@ -843,19 +1302,23 @@ def _workload(cfg):
     return lens, prompts, 32, base
 
 
-def _serve_run(eng, prompts, gen: int, step=None, stagger: int = 4) -> dict:
+def _serve_run(eng, prompts, gen: int, step=None, stagger: int = 4,
+               extras=None) -> dict:
     """The staggered workload through `eng` (4 requests up front, one more
     every `stagger` steps; all up front with stagger 0), stepped by `step`
-    (default `eng.step`). Launch counts are zeroed just before and read
-    just after."""
+    (default `eng.step`), request i with extras[i] (default none). Launch
+    counts are zeroed just before and read just after: by kernel in
+    "counts", with the split counters in "splits"."""
     import torch
     from repro_torch.kernels import ops
     step = eng.step if step is None else step
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
+    extras = extras or [None] * len(prompts)
     nxt = 4 if stagger else len(prompts)
-    ids = [eng.submit(p, max_new_tokens=gen) for p in prompts[:nxt]]
+    ids = [eng.submit(p, max_new_tokens=gen, extra=e)
+           for p, e in zip(prompts[:nxt], extras)]
     results, steps, metrics = {}, 0, []
     while eng.queue or any(s.request is not None for s in eng.slots) \
             or nxt < len(prompts) or eng._inflight is not None:
@@ -864,15 +1327,17 @@ def _serve_run(eng, prompts, gen: int, step=None, stagger: int = 4) -> dict:
         metrics += eng.pop_finished_metrics()
         steps += 1
         if nxt < len(prompts) and steps % stagger == 0:   # arrivals
-            ids.append(eng.submit(prompts[nxt], max_new_tokens=gen))
+            ids.append(eng.submit(prompts[nxt], max_new_tokens=gen,
+                                  extra=extras[nxt]))
             nxt += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts, splits = ops.launch_counts(), ops.launch_counts(splits=True)
     metrics += eng.pop_finished_metrics()
     eng.check()
     check(len(ids) == len(prompts), "every request is submitted")
-    return _result(eng, ids, results, gen, counts, wall, steps, metrics)
+    return dict(_result(eng, ids, results, gen, counts, wall, steps,
+                        metrics), splits=splits)
 
 
 def _result(eng, ids, results, gen, counts, wall, steps, metrics) -> dict:
@@ -1252,6 +1717,282 @@ def phase5(engines: dict, runs: dict) -> None:
             + "phase 4's paged tokens")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: llama-3.2-vision-11b at full size
+# ---------------------------------------------------------------------------
+
+def _vision_workload(cfg):
+    """Phase 6's workload: 8 prompts of 512-2048 tokens drawn from seed 0,
+    16 new tokens each; requests 0, 2, 4 and 6 carry seeded image
+    embeddings [1, 1601, 1280] (float32). The ServeConfig fields every run
+    shares."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 2049, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    extras = [{"image_embeds": rng.standard_normal(
+        (1, cfg.n_image_tokens, cfg.frontend_dim), dtype=np.float32)}
+        if i % 2 == 0 else None for i in range(8)]
+    base = dict(max_len=4096, batch_slots=4, prefill_chunk=512,
+                page_size=16)
+    return lens, prompts, extras, 16, base
+
+
+def _vision_launches(eng, st) -> dict:
+    """Phase 6's launch rule, from the engine's layer kinds, with the
+    split counters: K1 once a layer for each prefill chunk (self- and
+    cross-attention layers; the cross layers' non-causal); a paged decode
+    step K2 at each self-attention layer (K3 beside it with page_topn)
+    and K4 at each cross layer; a dense decode step K4 at every layer
+    (the cross layers' tagged); the full-precision baseline none."""
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import hamming_score as hs
+    from repro_torch.models import transformer as T
+    kinds = T.layer_kinds(eng.cfg)
+    n_a, n_c = kinds.count("A"), kinds.count("C")
+    want = {m.NAME: 0 for m in (pre, pdec, pscore, dec, hs)}
+    want[f"{pre.NAME}.noncausal_launches"] = 0
+    want[f"{dec.NAME}.cross_launches"] = 0
+    if not eng.scfg.binary:
+        return want
+    steps = st["decode_steps"]
+    want[pre.NAME] = (n_a + n_c) * st["prefill_chunks"]
+    want[f"{pre.NAME}.noncausal_launches"] = n_c * st["prefill_chunks"]
+    want[f"{dec.NAME}.cross_launches"] = n_c * steps
+    if eng.scfg.paged:
+        want[pdec.NAME] = n_a * steps
+        want[dec.NAME] = n_c * steps
+        if eng.scfg.page_topn is not None:
+            want[pscore.NAME] = n_a * steps
+    else:
+        want[dec.NAME] = (n_a + n_c) * steps
+    return want
+
+
+def phase6():
+    """llama-3.2-vision-11b as published (40 layers, AAAAC x 8, bf16),
+    weights drawn on the card from seed 0, served at full width: 4 slots,
+    512-token chunks, 16-token pages, max_len 4096, phase 6's workload.
+    Runs: paged (cross caches in a pooled state allocation), dense,
+    page_topn 255, full-precision paged, and paged with a pool small
+    enough to preempt and a host pool (swap-out preemption). Each engine
+    holds 2 graphs and follows `_vision_launches` (counts zeroed just
+    before a run, read just after); dense and page_topn-255 tokens equal
+    paged's bit for bit; the swap run swaps at least once, each victim's
+    state entry with its pages, and gives paged's tokens; the state pool
+    checks and every pool drains. Returns the launch totals of the runs
+    by vision record of phase 2, as the wrappers counted them (the split
+    counters tell a causal K1 launch from a cross layer's, a self-attention
+    layer's K4 from a cross layer's), and the paged engine, for
+    --profile."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Telemetry
+    from repro_torch.serve.paged import pages_needed
+    cfg = get_config(VISION)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = T.layer_kinds(cfg)
+    n_a, n_c = kinds.count("A"), kinds.count("C")
+    log(f"phase 6: {cfg.name} {cfg.n_layers} layers ({n_a} self-attention, "
+        f"{n_c} cross), {cfg.param_dtype}, {n_params} parameters "
+        f"({n_params / 1e9:.2f} B, {n_params * 2 / 1e9:.2f} GB), drawn on "
+        f"the card in {draw_s:.2f} s")
+    lens, prompts, extras, gen, base = _vision_workload(cfg)
+    log(f"phase 6: prompts {lens.tolist()}, images on requests 0, 2, 4, 6, "
+        f"{gen} new tokens each")
+    # the first four requests need 352 pages by their last token; on 234
+    # the scheduler (run alone on the host) only preempts victims with
+    # nothing computed yet, on 200 it swaps 12 out
+    swap_pool = 200
+    check(sum(pages_needed(int(n) + gen, base["page_size"])
+              for n in lens[:4]) > swap_pool, "the swap pool overcommits")
+    paths = {"paged": dict(paged=True), "dense": dict(paged=False),
+             "page_topn_255": dict(paged=True, page_topn=255),
+             "fp_paged": dict(paged=True, binary=False),
+             "paged_swap": dict(paged=True, n_pages=swap_pool,
+                                swap_pages=1024)}
+    runs, kept = {}, None
+    totals = dict.fromkeys((K1_VISION, K1_CROSS, K2_VISION, K3_VISION,
+                            K4_CROSS, K4_VISION), 0)
+    for name, kw in paths.items():
+        eng = _engine(cfg, model, dict(base, **kw), "cuda",
+                      telemetry=Telemetry())
+        moved = []
+        if name == "paged_swap":
+            swap_out = eng.runner._swap_out_pages
+
+            def spy(rid, pages, state_page=-1, swap_out=swap_out):
+                moved.append(state_page)
+                return swap_out(rid, pages, state_page)
+            eng.runner._swap_out_pages = spy
+        torch.cuda.reset_peak_memory_stats()
+        r = _serve_run(eng, prompts, gen, extras=extras)
+        st = r["stats"]
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        want = _vision_launches(eng, st)
+        check(r["splits"] == want and st["decode_steps"] > 0,
+              (name, r["splits"], want))
+        check(eng.allocator is None or eng.allocator.in_use == 0,
+              f"{name}: page pool not drained")
+        if eng.statepool is not None:
+            eng.statepool.check()
+            check(eng.statepool.n_held == 0, f"{name}: state pool held")
+        cache_b = eng.runner.cache_device_bytes()[0]
+        state_b = sum(leaf.numel() * leaf.element_size()
+                      for i in eng.runner._cross_layers
+                      for leaf in eng.runner.caches[i].values())
+        log(f"phase 6 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
+            f"prefill chunks, {st['decode_steps']} decode steps, "
+            f"{eng.runner.graph_count()} step graphs, launches "
+            f"{r['splits']}, tokens sha1 {r['digest']}; cache bytes "
+            f"{cache_b} of which cross "
+            f"{'state pool' if eng.statepool is not None else 'dense'} "
+            f"{state_b}")
+        log(f"phase 6 [{name}]: wall {r['wall']:.3f} s, "
+            f"{st['tokens_generated'] / r['wall']:.2f} generated tok/s, TTFT "
+            f"p50/p95 {np.percentile(r['ttft'], 50):.2f}/"
+            f"{np.percentile(r['ttft'], 95):.2f} ms, ITL p50/p95 "
+            f"{np.percentile(r['itl'], 50):.2f}/"
+            f"{np.percentile(r['itl'], 95):.2f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if name == "paged_swap":
+            check(st["swap_outs"] > 0, "paged_swap: no swap-out (void)")
+            check(st["replayed_tokens"] == 0
+                  and st["swap_ins"] == st["swap_outs"], st)
+            check(len(moved) == st["swap_outs"]
+                  and all(e >= 0 for e in moved),
+                  ("paged_swap: a victim's state entry did not move", moved))
+            check(eng.swap.in_use == 0, "paged_swap: host pool not drained")
+            log(f"phase 6 [paged_swap]: {swap_pool}-page pool, "
+                f"{st['preemptions']} preemptions, {st['swap_outs']} "
+                f"swap-outs (state entries {moved}) / {st['swap_ins']} "
+                f"swap-ins, swap_out_bytes {st['swap_out_bytes']}, "
+                f"swap_in_bytes {st['swap_in_bytes']}")
+        got = r["splits"]       # measured by the wrappers, through replays
+        noncausal = got[f"{pre.NAME}.noncausal_launches"]
+        cross = got[f"{dec.NAME}.cross_launches"]
+        totals[K1_VISION] += got[pre.NAME] - noncausal
+        totals[K1_CROSS] += noncausal
+        totals[K2_VISION] += got[pdec.NAME]
+        totals[K3_VISION] += got[pscore.NAME]
+        totals[K4_CROSS] += cross
+        totals[K4_VISION] += got[dec.NAME] - cross
+        runs[name] = r
+        if name == "paged":
+            kept = eng
+        else:
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name in ("dense", "page_topn_255", "paged_swap"):
+        check(runs[name]["digest"] == runs["paged"]["digest"] and all(
+            np.array_equal(a, b) for a, b in
+            zip(runs[name]["tokens"], runs["paged"]["tokens"])),
+            f"phase 6: {name} tokens differ from the paged run's")
+    log("phase 6: dense, page_topn 255 and swap tokens equal the paged "
+        "run's bit for bit")
+    return totals, kept
+
+
+def profile_vision(eng, out_dir: str) -> None:
+    """Device time by group in two windows of phase 6's paged vision
+    engine, each run once on the host clock and then once under
+    torch.profiler: the prefill of one 2048-token prompt with an image
+    into the idle engine (4 chunks in one step), then 8 decode steps of 4
+    slots at ~2k-token contexts, 2 with images. Groups: K1 (self- and
+    cross-attention chunks alike), K2 at the self-attention layers, K4 at
+    the cross layers (its DenseSrc split launches), the pooled cross
+    state's gathers (index_select), GEMMs and the rest."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(5)
+    cfg = eng.cfg
+
+    def request(gen, image):
+        eng.submit(rng.integers(0, cfg.vocab_size, 2048).astype(np.int32),
+                   max_new_tokens=gen, extra={"image_embeds": (
+                       rng.standard_normal((1, cfg.n_image_tokens,
+                                            cfg.frontend_dim),
+                                           dtype=np.float32))}
+                   if image else None)
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    def window(name, n, setup):
+        setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        setup()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+        groups: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            key = ("K1 prefill_*_kernel" if "prefill_" in e.key else
+                   "K4 split_*_kernel (cross layers)" if "split_" in e.key
+                   and "DenseSrc" in e.key else
+                   "K2 split_*_kernel" if "split_" in e.key else
+                   "state gather (index_select)" if "ndexSelect" in e.key
+                   or "index_select" in e.key else
+                   "memcpy/memset" if "Memcpy" in e.key
+                   or "Memset" in e.key
+                   else "gemm" if any(t in e.key for t in
+                                      ("gemm", "nvjet", "cutlass", "sm90"))
+                   else "other elementwise/reduce/index")
+            groups[key] = groups.get(key, 0.0) + dev(e)
+        busy = sum(groups.values())
+        with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=80))
+        log(f"profile {name}: {n} steps, host wall {wall / n:.3f} ms a "
+            f"step, device {busy / n:.3f} ms a step, busy {busy / wall:.3f};"
+            f" per step: " + "; ".join(
+                f"{k} {v / n:.3f} ms" for k, v in
+                sorted(groups.items(), key=lambda kv: -kv[1])))
+
+    window("vision_prefill_2048_paged", 1, lambda: request(1, True))
+    while eng.queue or any(s.request is not None for s in eng.slots):
+        eng.step()
+    for i in range(4):
+        request(64, i % 2 == 0)
+    while eng.queue or any(s.prefilling for s in eng.slots):
+        eng.step()
+    eng.step()
+    window("vision_decode_4x2k_paged", 8, lambda: None)
+
+
 def profile_windows(engines: dict, out_dir: str) -> None:
     """Device time by kernel in windows of the full-size engines of phase
     4, each run four times -- three timed on the host clock, then once
@@ -1403,10 +2144,14 @@ def main() -> int:
         card = phase1()
         records = phase2()
         phase3()
+        phase3_vision()
         counts, engines, runs = phase4()
         phase5(engines, runs)
+        vision_counts, vision_engine = phase6()
+        counts.update(vision_counts)
         if args.profile:
             profile_windows(engines, args.profile)
+            profile_vision(vision_engine, args.profile)
     except Exception:
         traceback.print_exc()
         return 1

@@ -3,7 +3,9 @@
 The JAX package keeps per-layer parameters stacked along a leading
 ``n_groups`` axis under ``params["blocks"]["pos<i>"]`` (its serve step
 scans over it). Layer ``g * len(layer_pattern) + i`` of the port is group
-``g`` of pattern position ``i``. Two sources:
+``g`` of pattern position ``i``; self- and cross-attention layers carry
+the same weight names, and a model with cross layers carries
+``frontend_proj`` too. Two sources:
 
 * `params_from_numpy` takes the tree as numpy arrays, e.g.
   ``jax.tree.map(np.asarray, params)`` -- no jax needed here.
@@ -66,6 +68,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu"
         put(model.final_norm.w, tree["final_norm"]["w"], "final_norm")
         if model.lm_head is not None:
             put(model.lm_head, tree["lm_head"], "lm_head")
+        if model.frontend_proj is not None:
+            put(model.frontend_proj, tree["frontend_proj"], "frontend_proj")
         span = len(cfg.layer_pattern)
         for layer, blk in enumerate(model.blocks):
             g, i = divmod(layer, span)

@@ -20,8 +20,10 @@ from repro_torch.kernels import binary_paged_decode_attention as pdec
 from repro_torch.kernels import build
 
 NAME = "binary_decode_attention"
-# launches of the CUDA kernel (plain integer; reset it to 0 before a run)
+# launches of the CUDA kernel (plain integer; reset it to 0 before a run),
+# and of those the ones a caller tagged `cross` (cross-attention layers)
 launches = 0
+cross_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -36,16 +38,17 @@ def _fn():
 
 def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
                      v: torch.Tensor, lengths: torch.Tensor, *, d: int,
-                     nsel: int, scale: float) -> torch.Tensor:
+                     nsel: int, scale: float,
+                     cross: bool = False) -> torch.Tensor:
     """Launch the contiguous-cache decode kernel.
 
     q_bits [R, G, W] int32 (R = B*Hk rows); k_bits [R, W, T] int32
     bit-planes; v [R, T, Dv] float32 or bfloat16; lengths [R] int32 valid
     keys per row (positions at or past it are ignored). The key axis is cut
-    into runs of the paged kernel's SPLIT_TILES. Returns [R, G, Dv]
-    float32.
+    into runs of the paged kernel's SPLIT_TILES. `cross` only tags the
+    launch for `cross_launches`. Returns [R, G, Dv] float32.
     """
-    global launches
+    global launches, cross_launches
     r, g, w = q_bits.shape
     r2, w2, t = k_bits.shape
     dv = v.shape[-1]
@@ -68,4 +71,5 @@ def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
                 int(v.dtype == torch.bfloat16), stream)
     build.check(err, NAME)
     launches += 1
+    cross_launches += cross
     return out

@@ -24,8 +24,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import TILE_KEYS
 
 NAME = "binary_prefill_attention"
-# launches of the CUDA kernel (plain integer; reset it to 0 before a run)
+# launches of the CUDA kernel (plain integer; reset it to 0 before a run),
+# and of those the non-causal ones (cross-attention layers' chunks)
 launches = 0
+noncausal_launches = 0
 HEAD_DIMS = (16, 32, 64, 128)   # V widths the kernel is instantiated for
 QUERY_TILE = 64                 # queries per CTA
 # Tiles of TILE_KEYS keys per split of the key axis: one CTA per (query-head
@@ -78,7 +80,7 @@ def prefill_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
     q_length [BH] int32. Query rows at or past q_length are zeros.
     Returns [BH, S, Dv] float32.
     """
-    global launches
+    global launches, noncausal_launches
     bh, s, w = q_bits.shape
     bhk, t, w2 = k_bits.shape
     dv = v.shape[-1]
@@ -112,4 +114,5 @@ def prefill_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
                 SPLIT_TILES, int(v.dtype == torch.bfloat16), stream)
     build.check(err, NAME)
     launches += 1
+    noncausal_launches += not causal
     return out

@@ -22,6 +22,9 @@ from repro_torch.kernels.ref import row_tables as _row_tables
 from repro_torch.kernels.ref import select_pages  # noqa: F401 (public)
 
 _KERNELS = (_pre, _pdec, _pscore, _dec, _hs)
+# counters that split a kernel's launches by the caller's kind, as
+# "<kernel name>.<counter>"
+_SPLITS = ((_pre, "noncausal_launches"), (_dec, "cross_launches"))
 
 
 def to_bitplanes(k_bits: torch.Tensor) -> torch.Tensor:
@@ -29,22 +32,34 @@ def to_bitplanes(k_bits: torch.Tensor) -> torch.Tensor:
     return k_bits.transpose(-1, -2)
 
 
-def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last reset, by kernel source name."""
-    return {k.NAME: k.launches for k in _KERNELS}
+def launch_counts(splits: bool = False) -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel source name; with
+    `splits`, also the split counters ("binary_prefill_attention.
+    noncausal_launches", "binary_decode_attention.cross_launches")."""
+    out = {k.NAME: k.launches for k in _KERNELS}
+    if splits:
+        out.update({f"{k.NAME}.{a}": getattr(k, a) for k, a in _SPLITS})
+    return out
 
 
 def reset_launch_counts(counts: dict[str, int] | None = None) -> None:
-    """Set every kernel's launch count to 0, or to `counts` (by name)."""
+    """Set every kernel's launch count and split counter to 0, or to
+    `counts` (by name; a split counter it lacks is left as it is)."""
     for k in _KERNELS:
         k.launches = 0 if counts is None else counts[k.NAME]
+    for k, a in _SPLITS:
+        setattr(k, a, 0 if counts is None
+                else counts.get(f"{k.NAME}.{a}", getattr(k, a)))
 
 
 def add_launch_counts(counts: dict[str, int]) -> None:
-    """Add `counts` (by name) to the launch counts: the launches a CUDA
-    graph replay makes, which no wrapper counts."""
+    """Add `counts` (by name, split counters included) to the launch
+    counts: the launches a CUDA graph replay makes, which no wrapper
+    counts."""
     for k in _KERNELS:
         k.launches += counts.get(k.NAME, 0)
+    for k, a in _SPLITS:
+        setattr(k, a, getattr(k, a) + counts.get(f"{k.NAME}.{a}", 0))
 
 
 def _per_slot(x, b: int, device) -> torch.Tensor:
@@ -79,13 +94,15 @@ def hamming_scores(q_bits: torch.Tensor, k_bits: torch.Tensor, d: int, *,
 
 def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
                      v: torch.Tensor, *, d: int, nsel: int, scale: float,
-                     lengths, bitplanes: bool = False) -> torch.Tensor:
+                     lengths, bitplanes: bool = False,
+                     cross: bool = False) -> torch.Tensor:
     """HAD decode attention for one new token over a contiguous cache.
 
     q_bits [B, H, W] int32; k_bits [B, Hk, T, W] row-major, or
     [B, Hk, W, T] when bitplanes=True (the dense cache's layout); v
-    [B, Hk, T, Dv]; lengths scalar or [B] int32 valid cache lengths.
-    Returns [B, H, Dv] float32.
+    [B, Hk, T, Dv]; lengths scalar or [B] int32 valid cache lengths;
+    cross tags a cross-attention layer's launch (the kernel's
+    `cross_launches`). Returns [B, H, Dv] float32.
     """
     b, h, w = q_bits.shape
     hk = k_bits.shape[1]
@@ -105,7 +122,7 @@ def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
         out = _dec.decode_attention(
             qf.contiguous(), k_planes.reshape(b * hk, w, t).contiguous(),
             vf.contiguous(), len_f.contiguous(), d=d, nsel=nsel,
-            scale=scale)
+            scale=scale, cross=cross)
     return out.reshape(b, h, dv)
 
 

@@ -11,13 +11,18 @@ request's tokens streamed the step they commit (the scheduler's
 The cache is dense (per-slot rows) unless --paged, --prefix-cache,
 --swap-pages or --page-topn asks for the paged pool. Attention is HAD over
 packed K bits unless --baseline asks for full precision. Weights are
-random, drawn from --seed. Each step runs as a replay of one of the
-runner's two CUDA graphs (prefill chunk, decode step); the count is
-printed at exit. With --async the drive loop is the double-buffered
+random, drawn from --seed on the serving device. Each step runs as a
+replay of one of the runner's two CUDA graphs (prefill chunk, decode
+step); the count is printed at exit. With --async the drive loop is the double-buffered
 `Engine.step_pipelined()` and the overlap summary is printed at exit; with
 --slo-ttft-ms / --slo-itl-ms the summary adds goodput under those
 deadlines. The JAX launcher's --mesh-model (tensor-parallel serving) waits
 for a later slice (ROADMAP.md queue 1).
+
+A model with cross-attention layers (--arch llama-3.2-vision-11b) is
+served text-only, as the JAX launcher serves it: it has no image flag, so
+every request's cross layers attend a zero image cache. Images ride in
+`Engine.submit(..., extra={"image_embeds": ...})`.
 """
 from __future__ import annotations
 
@@ -117,8 +122,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     cfg = get_config(args.arch, reduced=args.reduced)
-    model = init_params(cfg, torch.Generator().manual_seed(args.seed),
-                        device=device)
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), device=device)
     n_req = args.requests or 2 * args.slots
     rng = np.random.default_rng(args.seed)
     lo = max(1, int(args.prompt_len * (1 - args.len_spread)))

@@ -13,6 +13,16 @@ packed to 32-bit words. Two caches, as in the JAX package:
     [B, Hk, max_len + 1, Dh] rows. Prefill runs the prefill kernel over the
     cache rows; decode runs the contiguous-cache decode kernel.
 
+A cross-attention layer ("C") reads a static cache of image keys and
+values instead: ``init_cross_cache`` sizes it at exactly n_image_tokens
+positions (no trash position: its valid length is the whole cache),
+``fill_cross_cache`` computes it from the projected image embeddings,
+and the serving step reads it per slot (dense) or through pooled state
+entries (``cross_cache_read`` / ``cross_cache_write``). Its queries take
+no RoPE and attend every image key, non-causally: the prefill kernel for
+a chunk, the contiguous-cache decode kernel for a decode step, paged
+engine or not.
+
 The binary path goes through ``repro_torch.kernels.ops``, which dispatches
 by tensor device. The full-precision baseline (``binary=False``) keeps K
 and V in the model dtype, in the same two layouts, and runs
@@ -87,6 +97,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                               device=device),
         "v": rows,
     }
+
+
+def init_cross_cache(cfg: ModelConfig, entries: int, *,
+                     binary: bool = True, device=None) -> dict:
+    """One cross layer's cache: `entries` rows (slots of a dense cache, or
+    pool entries) of exactly max(n_image_tokens, 1) positions, laid out as
+    `init_cache`'s (binary, k_bits [E, Hk, W, T] bit-planes; full
+    precision, k [E, Hk, T, Dh]; and v [E, Hk, T, Dh]), as the JAX
+    package sizes it. Unlike a self-attention cache it has no trash
+    position: attention reads every position as valid."""
+    hk, dh, t = cfg.n_kv_heads, cfg.dh, max(cfg.n_image_tokens, 1)
+    rows = torch.zeros((entries, hk, t, dh), dtype=cfg.dtype, device=device)
+    if not binary:
+        return {"k": rows, "v": rows.clone()}
+    return {"k_bits": torch.zeros((entries, hk, hamming.packed_words(dh), t),
+                                  dtype=torch.int32, device=device),
+            "v": rows}
+
+
+def fill_cross_cache(p: Attention, img: torch.Tensor, *, cfg: ModelConfig,
+                     binary: bool) -> dict:
+    """The static cross-attention cache of projected image embeddings
+    img [B, T, D] (JAX ``fill_cross_cache``): K bits as bit-planes
+    [B, Hk, W, T] and V [B, Hk, T, Dh] (full precision: K rows)."""
+    b, t, _ = img.shape
+    hk, dh = cfg.n_kv_heads, cfg.dh
+    k = (img @ p.wk).reshape(b, t, hk, dh).transpose(1, 2)
+    v = (img @ p.wv).reshape(b, t, hk, dh).transpose(1, 2)
+    if binary:
+        return {"k_bits": hamming.pack_bits(k.to(torch.float32))
+                .transpose(-1, -2), "v": v}
+    return {"k": k, "v": v}
+
+
+def cross_cache_read(pool: dict, entries: torch.Tensor) -> dict:
+    """Gather cross-cache entries into a [B, ...] batch view (a copy)."""
+    return common.pool_read(pool, entries)
+
+
+def cross_cache_write(pool: dict, new: dict, entries: torch.Tensor,
+                      ok: torch.Tensor) -> None:
+    """Scatter a cross-cache batch view into its entries, in place; rows
+    not `ok` go to the pool's trash entry."""
+    common.pool_write(pool, new, entries, ok)
 
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
@@ -268,7 +322,7 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                n_valid: torch.Tensor | None = None,
                active: torch.Tensor | None = None,
                page_topn: int | None = None,
-               binary: bool = True) -> torch.Tensor:
+               binary: bool = True, cross: bool = False) -> torch.Tensor:
     """Prefill chunk (S > 1) or decode step (S == 1).
 
     x [B, S, D]; pos [B] per-slot position of x[:, 0]; block_tables
@@ -276,9 +330,14 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     n_valid [B] real tokens per row of a padded chunk (the valid cache
     length becomes pos + n_valid); active [B] rows whose writes land;
     page_topn: page-sparse decode over the paged cache (decode steps
-    only); binary: the HAD path (False: the full-precision baseline).
-    Updates `cache` in place and returns y [B, S, D].
+    only); binary: the HAD path (False: the full-precision baseline);
+    cross: a cross-attention layer over the static cache `cache` (a
+    [B, ...] view; see `_cross_attn`). Updates `cache` in place (a
+    self-attention layer) and returns y [B, S, D].
     """
+    if cross:
+        return _cross_attn(p, x, cfg=cfg, cache=cache, pos=pos, n=n,
+                           binary=binary)
     b, s, _ = x.shape
     dh, h, hk = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     q = (x @ p.wq).reshape(b, s, h, dh).transpose(1, 2)
@@ -325,6 +384,41 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
             qb, ops.to_bitplanes(k_rows), v_rows, d=dh, nsel=n,
             scale=p.scale, kv_length=kv_len, q_offset=pos, q_length=n_valid,
             causal=cfg.causal)
+    return _out(p, y.to(x.dtype))
+
+
+def _cross_attn(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
+                cache: dict, pos: torch.Tensor, n: int,
+                binary: bool) -> torch.Tensor:
+    """The cross branch of `attn_serve`, as the JAX package's: queries
+    without RoPE attend every position of the static cache [B, ...]
+    (valid length: the whole cache), non-causally, and nothing is written.
+    Binary: a decode step runs the contiguous-cache decode kernel over the
+    bit-planes, paged engine or not, and a chunk the prefill kernel with
+    causal=False and every query live; full precision,
+    ``standard_attention``. `page_topn` does not apply."""
+    b, s, _ = x.shape
+    dh, h = cfg.dh, cfg.n_heads
+    q = (x @ p.wq).reshape(b, s, h, dh).transpose(1, 2)
+    if not binary:
+        return _out(p, standard_attention(
+            q, cache["k"], cache["v"], scale=dh ** -0.5, causal=False,
+            q_offset=pos).to(x.dtype))
+    t = cache["v"].shape[2]
+    # lengths as device fills, never host copies: a captured step holds them
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
+    if s == 1:
+        y = ops.decode_attention(
+            qb[:, :, 0], cache["k_bits"], cache["v"], d=dh, nsel=n,
+            scale=p.scale, lengths=kv_len, bitplanes=True,
+            cross=True)[:, :, None]
+    else:
+        y = ops.prefill_attention(
+            qb, ops.to_bitplanes(cache["k_bits"]), cache["v"], d=dh, nsel=n,
+            scale=p.scale, kv_length=kv_len, q_offset=pos,
+            q_length=torch.full((b,), s, dtype=torch.int32,
+                                device=x.device), causal=False)
     return _out(p, y.to(x.dtype))
 
 

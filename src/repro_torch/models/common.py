@@ -13,16 +13,18 @@ import torch
 
 
 def dense_init(shape, dtype, *, generator: torch.Generator) -> torch.Tensor:
-    """Truncated-normal (+-2 sigma) init at fan-in std."""
+    """Truncated-normal (+-2 sigma) init at fan-in std, drawn on the
+    generator's device."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
-    x = torch.empty(shape, dtype=torch.float32)
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
     return (fan_in ** -0.5 * x).to(dtype)
 
 
 def embed_init(shape, dtype, *, generator: torch.Generator) -> torch.Tensor:
-    x = torch.randn(shape, dtype=torch.float32, generator=generator)
+    x = torch.randn(shape, dtype=torch.float32, generator=generator,
+                    device=generator.device)
     return (x * 0.02).to(dtype)
 
 
@@ -75,3 +77,32 @@ def mlp(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor | None,
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [..., D] @ w [D, V] -> float32 logits."""
     return x.to(torch.float32) @ w.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# pooled per-slot state (indexed entry reads and writes)
+# ---------------------------------------------------------------------------
+# A state pool is a dict of [n_entries + 1, ...] tensors: entries
+# [0, n_entries) match the JAX pool, and entry n_entries is a trash entry
+# that absorbs dropped writes (the JAX package drops them through an
+# out-of-bounds id, which torch's indexed writes refuse). No state table
+# ever names it.
+
+
+def pool_read(pool: dict, entries: torch.Tensor) -> dict:
+    """Gather state entries into a batch view (a copy): entries [B] int
+    ids, negative ids reading entry 0 (callers drop those rows' writes).
+    Returns a dict of [B, ...] tensors."""
+    idx = entries.to(torch.int64).clamp_min(0)
+    return {name: leaf.index_select(0, idx) for name, leaf in pool.items()}
+
+
+def pool_write(pool: dict, new: dict, entries: torch.Tensor,
+               ok: torch.Tensor) -> None:
+    """Scatter a batch view back into its entries, in place. Rows where
+    `ok` is False, or whose id is negative, go to the trash entry."""
+    for name, leaf in pool.items():
+        trash = leaf.shape[0] - 1
+        idx = torch.where(ok & (entries >= 0), entries.to(torch.int64),
+                          trash)
+        leaf.index_copy_(0, idx, new[name].to(leaf.dtype))

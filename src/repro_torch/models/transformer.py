@@ -1,14 +1,19 @@
-"""Dense decoder LM for serving (torch twin of the serving half of
+"""Decoder LM for serving (torch twin of the serving half of
 ``repro.models.transformer``).
 
 `Transformer` holds per-layer `Block`s whose parameter names follow the
 JAX tree (``blocks/pos0/{norm1,mixer,norm2,ffn}``), with the JAX
 package's leading ``n_groups`` axis unstacked into a list of layers; the
-JAX ``lax.scan`` over groups is a Python loop here.
+JAX ``lax.scan`` over groups is a Python loop here. Layer
+``g * len(layer_pattern) + i`` is group g of pattern position i.
 
-This slice serves dense decoders whose layer pattern is all "A" (e.g.
-smollm-135m) on the binary path or the full-precision baseline, over the
-paged or the dense cache; other families raise.
+This slice serves decoders whose layer pattern holds self-attention ("A")
+and cross-attention ("C") layers (smollm-135m, llama-3.2-vision-11b), on
+the binary path or the full-precision baseline, over the paged or the
+dense cache. Cross layers attend the image K/V of a static cache, filled
+from per-request image embeddings (``frontend_proj``, then each layer's
+wk/wv): dense per-slot rows, or entries of a state pool addressed by
+``state_tables`` when the engine pools state. Other families raise.
 """
 from __future__ import annotations
 
@@ -21,19 +26,29 @@ from repro_torch.models.config import ModelConfig
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model families this slice lacks."""
-    todo = ("is not ported yet: see ROADMAP.md queue 1, 'Still to port' "
-            "(hybrid, cross-attention, MoE and frontends)")
-    if set(cfg.layer_pattern) != {"A"}:
+    """Raise NotImplementedError for model families this slice lacks,
+    naming their ROADMAP.md items (queue 1, 'Still to port')."""
+    todo = "is not ported yet: see ROADMAP.md queue 1, 'Still to port'"
+    if "M" in cfg.layer_pattern:
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {cfg.layer_pattern!r} with SSM "
-            f"('M') or cross-attention ('C') layers {todo}")
+            f"('M') layers {todo}, item 1 (SSM layers)")
     if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: an MoE FFN {todo}")
-    if not cfg.causal or cfg.pos != "rope" or cfg.frontend_dim:
         raise NotImplementedError(
-            f"{cfg.name}: an encoder, learned positions or a frontend "
-            f"{todo}")
+            f"{cfg.name}: an MoE FFN {todo}, item 2 (MoE)")
+    if not cfg.causal or cfg.pos != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder or learned positions {todo}, item 5 "
+            f"(training, distillation and the encoder archs)")
+    if cfg.frontend_dim and "C" not in cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: a frames frontend {todo}, item 3 (frames "
+            f"frontends)")
+
+
+def layer_kinds(cfg: ModelConfig) -> str:
+    """The pattern character of every layer, in layer order."""
+    return cfg.layer_pattern * cfg.n_groups
 
 
 class RMSNorm(nn.Module):
@@ -78,6 +93,10 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(d, dt, device)
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.zeros((d, v), dtype=dt, device=device), requires_grad=False))
+        # image embeddings [.., frontend_dim] -> the cross layers' width
+        self.frontend_proj = (nn.Parameter(torch.zeros(
+            (cfg.frontend_dim, d), dtype=dt, device=device),
+            requires_grad=False) if cfg.frontend_dim else None)
         self.blocks = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
 
@@ -91,9 +110,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cpu") -> Transformer:
     """Seeded random weights: truncated normal at fan-in std for dense
     weights, normal * 0.02 for the embedding, ones for norms (the JAX
-    init's distributions; jax.random's numbers differ). Drawn on the CPU
-    generator, then moved to `device`."""
-    model = Transformer(cfg, device="cpu")
+    init's distributions; jax.random's numbers differ). Drawn on the
+    generator's device (a CPU generator by default; a CUDA generator draws
+    a full-size model on the card, without the host copy), then moved to
+    `device`. The numbers depend on the generator's device."""
+    model = Transformer(cfg, device=generator.device)
     dt = cfg.dtype
 
     def dense(param):
@@ -105,6 +126,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                             generator=generator))
         if model.lm_head is not None:
             dense(model.lm_head)
+        if model.frontend_proj is not None:
+            dense(model.frontend_proj)
         for blk in model.blocks:
             for name in ("wq", "wk", "wv", "wo"):
                 dense(getattr(blk.mixer, name))
@@ -118,17 +141,78 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def init_caches(cfg: ModelConfig, *, paged: bool, batch: int = 0,
                 max_len: int = 0, n_pages: int = 0, page_size: int = 16,
-                binary: bool = True, device=None) -> list[dict]:
-    """One cache dict per layer: page pools when `paged` (see
-    attention_block.init_paged_cache; n_pages, page_size), else dense
-    per-slot caches (attention_block.init_cache; batch, max_len); packed
-    K bits when `binary`, else full-precision K."""
-    if paged:
-        return [AB.init_paged_cache(cfg, n_pages, page_size, binary=binary,
-                                    device=device)
-                for _ in range(cfg.n_layers)]
-    return [AB.init_cache(cfg, batch, max_len, binary=binary, device=device)
-            for _ in range(cfg.n_layers)]
+                binary: bool = True, state_pages: int | None = None,
+                device=None) -> list[dict]:
+    """One cache dict per layer. Self-attention layers: page pools when
+    `paged` (see attention_block.init_paged_cache; n_pages, page_size),
+    else dense per-slot caches (attention_block.init_cache; batch,
+    max_len). Cross layers (attention_block.init_cross_cache): dense
+    [batch, ...] per-slot caches, or, with `state_pages`, a pool of
+    state_pages entries plus one trash entry, addressed by serve_step's
+    `state_tables`. Packed K bits when `binary`, else full-precision K."""
+    out = []
+    for kind in layer_kinds(cfg):
+        if kind == "C":
+            out.append(AB.init_cross_cache(
+                cfg, batch if state_pages is None else state_pages + 1,
+                binary=binary, device=device))
+        elif paged:
+            out.append(AB.init_paged_cache(cfg, n_pages, page_size,
+                                           binary=binary, device=device))
+        else:
+            out.append(AB.init_cache(cfg, batch, max_len, binary=binary,
+                                     device=device))
+    return out
+
+
+@torch.no_grad()
+def fill_cross_caches(model: Transformer, caches: list[dict],
+                      image_embeds: torch.Tensor, rows: torch.Tensor,
+                      ok: torch.Tensor, *, pooled: bool,
+                      binary: bool = True) -> None:
+    """Fill every cross layer's cache from image embeddings, in place.
+
+    image_embeds [R, T_img, frontend_dim]; rows [R] int: each embedding
+    row's cache row (dense caches) or its pool entry (`pooled`); ok [R]
+    bool: rows to write (the rest are dropped). The embeddings go through
+    ``frontend_proj``, then each layer's wk / wv (JAX ``_image_context``
+    and ``fill_cross_cache``)."""
+    cfg = model.cfg
+    img = image_embeds.to(cfg.dtype) @ model.frontend_proj   # [R, T, D]
+    rows = rows.to(torch.int64)
+    for kind, blk, cache in zip(layer_kinds(cfg), model.blocks, caches):
+        if kind != "C":
+            continue
+        new = AB.fill_cross_cache(blk.mixer, img, cfg=cfg, binary=binary)
+        if pooled:
+            AB.cross_cache_write(cache, new, rows, ok)
+            continue
+        keep = ok.reshape(-1, 1, 1, 1)
+        for name, leaf in cache.items():
+            leaf.index_copy_(0, rows, torch.where(
+                keep, new[name].to(leaf.dtype), leaf.index_select(0, rows)))
+
+
+def _cross_view(cache: dict, st: torch.Tensor | None,
+                st_ok: torch.Tensor | None,
+                zero: torch.Tensor | None) -> dict:
+    """A cross layer's cache as a [B, ...] view for one step: the dense
+    cache itself, or each row's pool entry gathered through `st`. Rows in
+    `zero` (fresh admissions without an image this step) are zeroed
+    first, in place: the dense rows, or the pool entries of rows that
+    hold one (rows without one read zeros)."""
+    if st is None:
+        if zero is not None:
+            m = zero.reshape(-1, 1, 1, 1)
+            for leaf in cache.values():
+                leaf.masked_fill_(m, 0)
+        return cache
+    view = AB.cross_cache_read(cache, st)
+    if zero is not None:
+        m = zero.reshape(-1, 1, 1, 1)
+        view = {name: leaf.masked_fill(m, 0) for name, leaf in view.items()}
+        AB.cross_cache_write(cache, view, st, st_ok & zero)
+    return view
 
 
 @torch.no_grad()
@@ -139,6 +223,9 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                n_valid: torch.Tensor | None = None,
                page_topn: int | None = None,
                binary: bool = True,
+               state_tables: torch.Tensor | None = None,
+               image_embeds: torch.Tensor | None = None,
+               zero_fresh: bool = True,
                logits_mode: str = "all") -> torch.Tensor:
     """Prefill (tokens [B, S>1]) or decode (tokens [B, 1]) against the
     caches, which are updated in place.
@@ -147,21 +234,58 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     for paged caches, None for dense ones; active [B] bool rows whose cache
     writes land (others ride along and produce garbage logits); n_valid
     [B] real tokens per row of a padded chunk; page_topn: page-sparse
-    decode over paged caches (ignored by prefill chunks); binary: the HAD
-    path over packed K bits, or (False) the full-precision baseline over
-    caches made with init_caches(binary=False).
+    decode over paged caches (ignored by prefill chunks and cross layers);
+    binary: the HAD path over packed K bits, or (False) the full-precision
+    baseline over caches made with init_caches(binary=False).
+
+    Cross layers (JAX ``serve_step``'s "C" positions): state_tables [B]
+    int entry ids when their caches are pooled (-1: no entry; reads see
+    entry 0, writes are dropped), else they are dense per-slot caches.
+    image_embeds [B, T_img, frontend_dim] fills the cross caches of the
+    active rows (pooled: of active rows with an entry) before the layers
+    run, as the JAX step does when its batch carries them. Without them,
+    a row that starts a request in this chunk (active, pos 0, n_valid
+    given) attends a zero cross cache, never the previous occupant's
+    image: its dense row or pool entry is zeroed. `zero_fresh=False`
+    skips that zero, for a caller that writes those rows itself before
+    the step (the serving runner, outside its captured graphs). A decode
+    step never writes a cross cache.
+
     logits_mode="last" returns each row's logits at its last valid
     position only. Returns float32 logits [B, S or 1, padded_vocab].
     """
     cfg = model.cfg
-    s = tokens.shape[1]
+    b, s = tokens.shape
+    st = st_ok = None
+    if state_tables is not None:
+        st = state_tables.to(torch.int64)
+        st_ok = st >= 0 if active is None else (st >= 0) & active
+    if image_embeds is not None:
+        live = (torch.ones((b,), dtype=torch.bool, device=tokens.device)
+                if active is None else active)
+        if st is None:
+            fill_cross_caches(model, caches, image_embeds,
+                              torch.arange(b, device=tokens.device), live,
+                              pooled=False, binary=binary)
+        else:
+            fill_cross_caches(model, caches, image_embeds, st, st_ok,
+                              pooled=True, binary=binary)
+    zero = None        # every active row is filled when images ride along
+    if (zero_fresh and image_embeds is None and n_valid is not None
+            and active is not None):
+        zero = active & (pos == 0)
     x = model.embed[tokens.to(torch.int64)]                # [B, S, D]
-    for blk, cache in zip(model.blocks, caches):
+    for kind, blk, cache in zip(layer_kinds(cfg), model.blocks, caches):
         h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
-        x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=cache, pos=pos,
-                              n=n, block_tables=block_tables,
-                              n_valid=n_valid, active=active,
-                              page_topn=page_topn, binary=binary)
+        if kind == "C":
+            view = _cross_view(cache, st, st_ok, zero)
+            x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=view,
+                                  pos=pos, n=n, binary=binary, cross=True)
+        else:
+            x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=cache,
+                                  pos=pos, n=n, block_tables=block_tables,
+                                  n_valid=n_valid, active=active,
+                                  page_topn=page_topn, binary=binary)
         if cfg.d_ff > 0:
             h2 = common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps)
             x = x + common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,

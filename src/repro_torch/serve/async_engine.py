@@ -132,10 +132,11 @@ class AsyncEngine:
     async def submit(self, tokens: np.ndarray, max_new_tokens: int = 16, *,
                      eos_token: int | None = None,
                      sampling: SamplingParams | None = None,
-                     priority: str = "batch",
+                     extra: dict | None = None, priority: str = "batch",
                      on_token: Callable[[int], None] | None = None
                      ) -> AsyncRequestHandle:
-        """Enqueue a request; returns its streaming handle. Raises
+        """Enqueue a request (`extra`: per-request model inputs, as
+        `Engine.submit`); returns its streaming handle. Raises
         :class:`SLORejected` when the admission gate predicts the TTFT
         deadline is already lost in queue."""
         if (self.slo_ttft_s is not None
@@ -147,7 +148,7 @@ class AsyncEngine:
         handle = AsyncRequestHandle(on_token)
         self._pending.append((handle, (tokens, max_new_tokens),
                               dict(eos_token=eos_token, sampling=sampling,
-                                   priority=priority)))
+                                   extra=extra, priority=priority)))
         self._wake.set()
         return handle
 

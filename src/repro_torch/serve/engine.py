@@ -16,9 +16,13 @@ The port serves the binary path and the full-precision baseline
 (`ServeConfig(binary=False)`) over the paged cache (with recompute or
 swap-out preemption, `swap_pages`, `prefix_cache` and page-sparse decode,
 `page_topn`) or the dense cache (`paged=False`), stepped synchronously,
-pipelined, or from asyncio (`serve/async_engine.py`). Tensor-parallel
-serving and hybrid, cross-attention, MoE and frontend models raise
-NotImplementedError when the engine builds its runner; see ROADMAP.md.
+pipelined, or from asyncio (`serve/async_engine.py`), for decoders with
+self- and cross-attention layers: a request's image embeddings ride in
+`submit(..., extra={"image_embeds": [1, T_img, frontend_dim]})`, and a
+paged engine keeps the cross caches in a pooled state allocation
+(`statepool`). Tensor-parallel serving and SSM, MoE and frames-frontend
+models raise NotImplementedError when the engine builds its runner; see
+ROADMAP.md.
 The engine runs on the card unless the caller asks for the CPU, each step
 as a CUDA graph replay unless it asks for the eager step (`eager=True`).
 
@@ -41,8 +45,10 @@ from repro_torch.serve.runner import ModelRunner
 from repro_torch.serve.scheduler import (FinishedRequest, Request,
                                          SamplingParams, SchedulePlan,
                                          Scheduler, ServeConfig)
+from repro_torch.serve.runner import _chunk_extra
 from repro_torch.serve.statepool import StatePool
 from repro_torch.serve.telemetry import RequestMetrics, Telemetry
+from repro_torch.serve.validate import state_layer_positions
 
 __all__ = ["Engine", "FinishedRequest", "Request", "RequestMetrics",
            "SamplingParams", "ServeConfig", "Telemetry"]
@@ -67,9 +73,11 @@ class Engine:
         self.cfg = cfg
         self.scfg = scfg
         self.telemetry = telemetry
+        state_layers = (len(state_layer_positions(cfg.layer_pattern))
+                        if scfg.paged else 0)
         self.scheduler = Scheduler(
             scfg, stats=(telemetry.registry if telemetry else None),
-            state_layers=0)
+            state_layers=state_layers)
         self.scheduler.telemetry = telemetry
         self.runner = ModelRunner(cfg, model, scfg,
                                   stats=self.scheduler.stats, device=device,
@@ -112,7 +120,8 @@ class Engine:
 
     @property
     def statepool(self) -> StatePool | None:
-        """None: no model the port serves has pooled SSM/cross state."""
+        """The pooled state entries' accounting (a paged engine of a model
+        with cross layers), else None."""
         return self.scheduler.statepool
 
     @property
@@ -145,12 +154,15 @@ class Engine:
     def submit(self, tokens: np.ndarray | Request, max_new_tokens: int = 16,
                *, eos_token: int | None = None,
                sampling: SamplingParams | None = None,
-               priority: str = "batch") -> int:
+               extra: dict | None = None, priority: str = "batch") -> int:
         """Enqueue a request; returns its request_id. Admission happens at
-        the next `step()` with a free slot."""
+        the next `step()` with a free slot. `extra` holds per-request model
+        inputs with a batch dimension of 1, e.g. {"image_embeds":
+        [1, n_image_tokens, frontend_dim]} for a model with cross
+        layers."""
         return self.scheduler.submit(tokens, max_new_tokens,
                                      eos_token=eos_token, sampling=sampling,
-                                     priority=priority)
+                                     extra=extra, priority=priority)
 
     def step(self) -> list[FinishedRequest]:
         """One synchronous scheduler step; returns newly finished requests
@@ -362,10 +374,13 @@ class Engine:
     # ------------------------------------------------------------------
     # low-level lockstep API (uniform batches, hand-driven)
     # ------------------------------------------------------------------
-    def prefill(self, tokens: np.ndarray) -> torch.Tensor:
+    def prefill(self, tokens: np.ndarray,
+                extra: dict | None = None) -> torch.Tensor:
         """Uniform-length batched prefill of ALL slots at once.
 
-        tokens: [batch_slots, S]. Resets every slot (resident requests are
+        tokens: [batch_slots, S]; extra: model inputs by row, e.g.
+        {"image_embeds": [batch_slots, n_image_tokens, frontend_dim]}
+        (first chunk only). Resets every slot (resident requests are
         dropped with their caches, sampling rngs and pending tokens) and
         raises if requests are still queued. Returns last-position logits
         [batch_slots, V], a copy: the step's own output is overwritten by
@@ -395,7 +410,9 @@ class Engine:
             padded[:, :nv] = tokens[:, lo:hi]
             logits = self.runner.prefill_step(
                 padded, np.full((b,), lo, np.int32), np.ones((b,), bool),
-                np.full((b,), nv, np.int32), self.block_tables)
+                np.full((b,), nv, np.int32), self.block_tables,
+                self.state_tables,
+                _chunk_extra(extra, s, lo, hi, self.chunk))
             lo = hi
         for slot in self.slots:
             slot.length = s
@@ -415,7 +432,8 @@ class Engine:
                 self.scheduler.lockstep_alloc(i, int(pos[i]) + 1)
         logits = self.runner.decode_step(np.asarray(tokens, np.int32), pos,
                                          np.ones((b,), bool),
-                                         self.block_tables)
+                                         self.block_tables,
+                                         self.state_tables)
         for slot in self.slots:
             slot.length += 1
         return logits[:, 0, :self.cfg.vocab_size].clone()

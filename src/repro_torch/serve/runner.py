@@ -10,22 +10,28 @@ back in `Scheduler.commit`.
 Execution order within one plan (as in the JAX runner; the order that
 makes page recycling safe):
 
-  1. swap-in scatters: restore swapped requests' page contents into their
-     freshly allocated device pages, in place;
-  2. swap-out gathers: copy each victim's pages on the device, before any
-     planned write can recycle them, and start their copy to pinned host
-     memory;
-  3. admission state init: a no-op, since no model this port serves has
-     pooled SSM or cross state (ROADMAP.md queue 1);
-  4. prefill chunks, in plan order, sampling each completed prompt's
-     first token from the chunk's last-valid logits;
+  1. swap-in scatters: restore swapped requests' page contents (and, for
+     models with cross layers, their pooled state entry) into their
+     freshly allocated device pages and entry, in place;
+  2. swap-out gathers: copy each victim's pages and state entry on the
+     device, before any planned write can recycle them, and start their
+     copy to pinned host memory;
+  3. admission state restores: copy a prefix-matched checkpoint entry
+     into the admission's live state entry;
+  4. prefill chunks, in plan order: just before a request's first
+     chunk's replay, its image embeddings fill its cross caches (dense
+     row or state entry) in place, or, without an image, they are zeroed
+     (a refilled slot never inherits the previous occupant's image); each
+     completed prompt's first token is sampled from the chunk's
+     last-valid logits; a chunk with a planned `state_ckpt` is followed
+     by a live-entry -> checkpoint-entry copy;
   5. one batched ragged decode over the plan's decode set (minus slots
      whose just-sampled first token hit eos).
 
 Everything runs on the current stream, so stream order alone keeps the
 swap gathers ahead of the step that recycles their pages. The swap
-transfers are one indexed copy per pool leaf outside the captured graphs,
-so the two-graph pin holds.
+transfers, the state entry ops and the image fills are indexed copies
+outside the captured graphs, so the two-graph pin holds.
 
 `execute(plan)` is `wait(execute_async(plan))`. `execute_async` returns
 once the step is enqueued: the decode logits are on their way to a pinned
@@ -60,7 +66,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import pages_needed
 from repro_torch.serve.scheduler import SamplingParams, SchedulePlan, ServeConfig
 from repro_torch.serve.telemetry import SERVE_COUNTERS, MetricsRegistry
-from repro_torch.serve.validate import validate_serve_features
+from repro_torch.serve.validate import (resolve_state_pages,
+                                        validate_serve_features)
 
 
 def resolve_device(device) -> torch.device:
@@ -81,18 +88,33 @@ def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     if scfg.mesh is not None:
         raise NotImplementedError(
             "repro_torch does not serve tensor-parallel serving (mesh) yet: "
-            "see ROADMAP.md queue 1, 'Still to port'")
+            "see ROADMAP.md queue 1, 'Still to port', item 4")
 
 
-def _refuse_state_page(state_page: int) -> None:
-    """Pooled SSM/cross state entries travel with a victim's pages only
-    for hybrid and cross-attention models, which the port does not serve
-    yet."""
-    if state_page >= 0:
-        raise NotImplementedError(
-            "swapping a pooled state entry (hybrid / cross-attention "
-            "models) is not ported yet: see ROADMAP.md queue 1, 'Still to "
-            "port' (hybrid, cross-attention, MoE and frontends)")
+def _chunk_extra(extra: dict | None, s: int, lo: int, hi: int,
+                 chunk: int) -> dict:
+    """Route extra model inputs into the padded [lo, hi) prefill chunk
+    (JAX ``_chunk_extra``, without its in-slot scatter: the runner passes
+    a request's arrays with its slot instead).
+
+    `image_embeds` fills the (static, persisted) cross cache: first chunk
+    only. Sequence-aligned arrays (axis 1 == prompt length, e.g. `frames`)
+    are sliced to the chunk and zero-padded to `chunk`. Anything else
+    rides with the first chunk. Returns numpy arrays.
+    """
+    out: dict[str, Any] = {}
+    for key, val in (extra or {}).items():
+        arr = np.asarray(val)
+        if key != "image_embeds" and arr.ndim >= 2 and arr.shape[1] == s:
+            arr = arr[:, lo:hi]
+            if hi - lo < chunk:
+                widths = [(0, 0)] * arr.ndim
+                widths[1] = (0, chunk - (hi - lo))
+                arr = np.pad(arr, widths)
+        elif lo != 0:
+            continue
+        out[key] = arr
+    return out
 
 
 def _sample_token(logits: np.ndarray, sp: SamplingParams, rng) -> int:
@@ -133,10 +155,11 @@ class _PendingStep:
 
 class _StepInputs:
     """The static inputs of one step kind: every plan array of the step
-    (tokens [B, S], pos, active and n_valid [B], block tables [B, nb]) in
-    one int32 device buffer, filled from one host staging buffer (pinned
-    on the card) by one copy a step. The step reads views of the device
-    buffer, so a captured graph sees each new plan at the same addresses."""
+    (tokens [B, S], pos, active and n_valid [B], block tables [B, nb],
+    state tables [B]) in one int32 device buffer, filled from one host
+    staging buffer (pinned on the card) by one copy a step. The step reads
+    views of the device buffer, so a captured graph sees each new plan at
+    the same addresses."""
 
     def __init__(self, shapes: dict[str, tuple[int, ...]], device):
         sizes = [math.prod(shape) for shape in shapes.values()]
@@ -168,9 +191,9 @@ class _StepInputs:
 
     def stage_null(self) -> None:
         """The null plan: every row inactive, n_valid 0, every table entry
-        -1, so every cache write of a step lands in the trash page or
-        position."""
-        self.stage(**{name: -1 if name == "tables" else 0
+        -1, so every cache write of a step lands in the trash page,
+        position or entry."""
+        self.stage(**{name: -1 if name in ("tables", "state") else 0
                       for name in self.views})
 
 
@@ -207,6 +230,16 @@ class ModelRunner:
         self.chunk = max(1, min(scfg.prefill_chunk, scfg.max_len))
         self.page = scfg.page_size
         self.n_pages = 0
+        kinds = T.layer_kinds(cfg)
+        # layers whose caches are page pools (swapped page by page), and
+        # cross layers, whose caches are a pooled state allocation in a
+        # paged engine (JAX `_state_positions`; swapped entry by entry)
+        self._pool_layers = ([i for i, k in enumerate(kinds) if k == "A"]
+                             if scfg.paged else [])
+        self._cross_layers = [i for i, k in enumerate(kinds) if k == "C"]
+        self._state_layers = self._cross_layers if scfg.paged else []
+        self.n_state_pages = (resolve_state_pages(scfg)
+                              if self._state_layers else 0)
         if scfg.paged:
             self.n_pages = (scfg.n_pages if scfg.n_pages is not None
                             else scfg.batch_slots
@@ -218,14 +251,17 @@ class ModelRunner:
             self._page_v_bytes = self.page * cfg.dh * elem
             self._page_k_bytes = (hamming.packed_words(cfg.dh) * 4 * self.page
                                   if scfg.binary else self._page_v_bytes)
-            self._attn_rows = cfg.n_layers * cfg.n_kv_heads
+            self._attn_rows = kinds.count("A") * cfg.n_kv_heads
         self.caches = T.init_caches(
             cfg, paged=scfg.paged, batch=scfg.batch_slots,
             max_len=scfg.max_len, n_pages=self.n_pages, page_size=self.page,
-            binary=scfg.binary, device=self.device)
+            binary=scfg.binary, state_pages=self.n_state_pages or None,
+            device=self.device)
         b = scfg.batch_slots
         tables = ({"tables": (b, pages_needed(scfg.max_len, self.page))}
                   if scfg.paged else {})
+        if self._state_layers:
+            tables["state"] = (b,)
         self._inputs = {
             "prefill": _StepInputs(dict(tokens=(b, self.chunk), pos=(b,),
                                         active=(b,), n_valid=(b,), **tables),
@@ -239,18 +275,22 @@ class ModelRunner:
         self._host_logits = torch.empty((b, cfg.padded_vocab),
                                         dtype=torch.float32, pin_memory=cuda)
         # swapped-out contents, request_id -> one {leaf name -> [k_pages,
-        # ...] host tensor (pinned on the card)} per layer (accounting lives
-        # in the scheduler's SwapPool; this is the data half)
+        # ...] host tensor (pinned on the card)} per page-pool layer, then,
+        # when the victim held a state entry, one {leaf name -> [1, ...]}
+        # per state layer (accounting lives in the scheduler's SwapPool;
+        # this is the data half)
         self._swap_store: dict[int, list[dict[str, torch.Tensor]]] = {}
         # recorded after the last swap-out's copies to the host; waited on
         # at wait() / sync()
         self._swaps_landed = None
 
     def cache_device_bytes(self) -> tuple[int, int]:
-        """(total, per_device) bytes of the KV caches; equal, on one
-        device. The port's pools and dense caches each hold one trash page
-        (or position) per leaf beyond the JAX package's, where dropped
-        writes land, and they are counted."""
+        """(total, per_device) bytes of every layer's cache; equal, on one
+        device. Unlike the JAX runner's count, which holds the
+        self-attention caches only, it counts the cross caches (dense, or
+        the state pool) too. The port's pools and dense caches each hold
+        one trash page, position or entry per leaf beyond the JAX
+        package's, where dropped writes land, and they are counted."""
         total = sum(leaf.numel() * leaf.element_size()
                     for cache in self.caches for leaf in cache.values())
         return total, total
@@ -292,7 +332,8 @@ class ModelRunner:
             block_tables=v.get("tables"), active=v["active"] != 0,
             n_valid=v.get("n_valid"),
             page_topn=self.scfg.page_topn if kind == "decode" else None,
-            binary=self.scfg.binary, logits_mode="last")
+            binary=self.scfg.binary, state_tables=v.get("state"),
+            zero_fresh=False, logits_mode="last")
 
     def _capture(self, kind: str) -> _Graph:
         """A kind's first use: one warm-up run (on a side stream, as
@@ -302,7 +343,7 @@ class ModelRunner:
         On the CPU only the warm-up runs. A failure raises."""
         inp = self._inputs[kind]
         inp.stage_null()
-        counts = ops.launch_counts()
+        counts = ops.launch_counts(splits=True)
         if self.device.type != "cuda":
             self._forward(kind)
             return _Graph(None, None, {})
@@ -315,10 +356,10 @@ class ModelRunner:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
+        before = ops.launch_counts(splits=True)
         with torch.cuda.graph(graph, pool=self._pool):
             logits = self._forward(kind)
-        after = ops.launch_counts()
+        after = ops.launch_counts(splits=True)
         ops.reset_launch_counts(counts)
         return _Graph(graph, logits,
                       {k: after[k] - before[k] for k in after})
@@ -340,27 +381,83 @@ class ModelRunner:
     # ------------------------------------------------------------------
     # low-level steps
     # ------------------------------------------------------------------
+    def _tables(self, block_tables, state_tables) -> dict:
+        """A step's table arrays, by static input name."""
+        out = {} if block_tables is None else {"tables": block_tables}
+        if self._state_layers:
+            out["state"] = (np.full(self.scfg.batch_slots, -1, np.int32)
+                            if state_tables is None else state_tables)
+        return out
+
+    def _write_cross(self, emb, rows: np.ndarray, pos, active,
+                     state: np.ndarray | None) -> None:
+        """Write the cross caches a prefill chunk reads, in place and
+        outside the step graph (the graph never writes them): the active
+        slots among `rows` take their image embeddings (`emb`
+        [len(rows), T_img, frontend_dim], or None), and every other active
+        slot that starts a request in this chunk (pos 0) is zeroed, so a
+        refilled slot never reads the previous occupant's image. A slot's
+        cross cache is its dense row, or its entry in `state` (slots with
+        entry -1 are skipped)."""
+        live = np.asarray(active, bool)
+        fresh = live & (np.asarray(pos) == 0)
+        dev = self.device
+        if emb is not None:
+            keep = live[rows]
+            rows, emb = rows[keep], np.asarray(emb)[keep]
+            fresh[rows] = False
+            idx = rows if state is None else np.asarray(state)[rows]
+            T.fill_cross_caches(
+                self.model, self.caches, torch.from_numpy(emb).to(dev),
+                torch.from_numpy(idx.astype(np.int64)).to(dev),
+                torch.from_numpy(idx >= 0).to(dev),
+                pooled=state is not None, binary=self.scfg.binary)
+        zero = np.flatnonzero(fresh)
+        if state is not None:
+            zero = np.asarray(state)[zero]
+            zero = zero[zero >= 0]
+        if zero.size:
+            self._state_zero(zero)
+
     def prefill_step(self, tokens: np.ndarray, pos: np.ndarray,
                      active: np.ndarray, n_valid: np.ndarray,
-                     block_tables: np.ndarray | None) -> torch.Tensor:
+                     block_tables: np.ndarray | None,
+                     state_tables: np.ndarray | None = None,
+                     extra: dict | None = None,
+                     rows: np.ndarray | None = None) -> torch.Tensor:
         """One padded prefill chunk: tokens [B, chunk] zero-padded, per-row
-        pos/active/n_valid masks. Returns last-valid logits [B, 1, V],
-        valid until the next step."""
-        tables = {} if block_tables is None else {"tables": block_tables}
+        pos/active/n_valid masks, the state tables of a pooled-state
+        engine, and the chunk's extra inputs (`_chunk_extra`), one entry
+        per slot in `rows` (default: every slot, [B, ...]). Before the
+        replay, image embeddings fill their active slots' cross caches and
+        the other fresh slots' are zeroed (`_write_cross`). Returns
+        last-valid logits [B, 1, V], valid until the next step."""
+        extra = extra or {}
+        if "frames" in extra:
+            raise NotImplementedError(
+                "frames frontends are not ported yet: see ROADMAP.md queue "
+                "1, 'Still to port', item 3")
+        arrays = self._tables(block_tables, state_tables)
+        if self._cross_layers:    # without them, images are ignored, as in JAX
+            self._write_cross(
+                extra.get("image_embeds"),
+                np.arange(self.scfg.batch_slots) if rows is None
+                else np.asarray(rows), pos, active, arrays.get("state"))
         logits = self._step("prefill", tokens=tokens, pos=pos, active=active,
-                            n_valid=n_valid, **tables)
+                            n_valid=n_valid, **arrays)
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += int(np.asarray(n_valid).sum())
         return logits
 
     def decode_step(self, tokens: np.ndarray, pos: np.ndarray,
                     active: np.ndarray,
-                    block_tables: np.ndarray | None) -> torch.Tensor:
+                    block_tables: np.ndarray | None,
+                    state_tables: np.ndarray | None = None) -> torch.Tensor:
         """One batched ragged decode step; returns logits [B, 1, V], valid
         until the next step."""
-        tables = {} if block_tables is None else {"tables": block_tables}
         logits = self._step("decode", tokens=np.asarray(tokens)[:, None],
-                            pos=pos, active=active, **tables)
+                            pos=pos, active=active,
+                            **self._tables(block_tables, state_tables))
         if self.scfg.paged:
             self._count_decode_traffic(pos, active)
         return logits
@@ -410,17 +507,18 @@ class ModelRunner:
         for rc in plan.reclaims:                    # 2. gathers
             if rc.kind == "swap-out":
                 self._swap_out_pages(rc.request_id, rc.pages, rc.state_page)
+        for adm in plan.admissions:                 # 3. state restores
+            if (adm.state_page >= 0 and adm.resume != "swap"
+                    and adm.state_restore >= 0):
+                self._state_copy(adm.state_restore, adm.state_page,
+                                 count=False)
         results: dict[int, list[int]] = collections.defaultdict(list)
         b = self.scfg.batch_slots
         vocab = self.cfg.vocab_size
         sampled: dict[int, int] = {}
         eos_hit: set[int] = set()
-        for ch in plan.prefill:
+        for ch in plan.prefill:                     # 4. prefill chunks
             req = ch.request
-            if req.extra:
-                raise NotImplementedError(
-                    "per-request extra model inputs (frontends) are not "
-                    "ported: ROADMAP queue 1, 'Still to port'")
             nv = ch.hi - ch.lo
             tokens = np.zeros((b, self.chunk), np.int32)
             tokens[ch.slot, :nv] = req.tokens[ch.lo:ch.hi]
@@ -428,10 +526,18 @@ class ModelRunner:
             active[ch.slot] = True
             n_valid = np.zeros((b,), np.int32)
             n_valid[ch.slot] = nv
-            logits = self.prefill_step(tokens, np.asarray(ch.pos, np.int32),
-                                       active, n_valid, plan.block_tables)
+            logits = self.prefill_step(
+                tokens, np.asarray(ch.pos, np.int32), active, n_valid,
+                plan.block_tables, plan.state_tables,
+                _chunk_extra(req.extra, int(req.tokens.size), ch.lo, ch.hi,
+                             self.chunk), rows=np.array([ch.slot]))
             if self.telemetry is not None:
                 self.telemetry.on_chunk(req.request_id)
+            if ch.state_ckpt >= 0:
+                # checkpoint the state at this chunk's page-aligned
+                # frontier, for later prefix restores
+                self._state_copy(int(plan.state_tables[ch.slot]),
+                                 ch.state_ckpt)
             if ch.samples:
                 row = logits[ch.slot, 0, :vocab].cpu().numpy()
                 tok = _sample_token(row, req.sampling, ch.rng)
@@ -441,7 +547,7 @@ class ModelRunner:
                     eos_hit.add(ch.slot)
         entries = [e for e in plan.decode if e.slot not in eos_hit]
         host = ready = None
-        if entries:
+        if entries:                                 # 5. batched decode
             tokens = np.zeros((b,), np.int32)
             active = np.zeros((b,), bool)
             for e in entries:
@@ -450,7 +556,8 @@ class ModelRunner:
                 active[e.slot] = True
             logits = self.decode_step(tokens,
                                       np.asarray(plan.decode_pos, np.int32),
-                                      active, plan.block_tables)
+                                      active, plan.block_tables,
+                                      plan.state_tables)
             self.stats["decode_steps"] += 1
             host = self._host_logits
             if self.device.type == "cuda":
@@ -481,29 +588,26 @@ class ModelRunner:
     # page swap transfers (the data half of swap-out preemption)
     # ------------------------------------------------------------------
     def _page_index(self, pages) -> torch.Tensor:
-        """Page ids as an int64 tensor on the device, sent from pinned
-        memory on the card so that the copy does not wait for the queue."""
+        """Page (or entry) ids as an int64 tensor on the device, sent from
+        pinned memory on the card so that the copy does not wait for the
+        queue."""
         idx = torch.from_numpy(np.asarray(pages, np.int64))
         if self.device.type == "cuda":
             idx = idx.pin_memory().to(self.device, non_blocking=True)
         return idx
 
-    def _swap_out_pages(self, request_id: int, pages: tuple,
-                        state_page: int = -1) -> None:
-        """Gather a victim's pages from every pool leaf (k_bits + v, or the
-        fp k + v) with one `index_select` each, on the current stream ahead
-        of the plan's replays: stream order snapshots the pre-recycle
-        contents. On the card each gather then goes to pinned host memory
-        by a non-blocking copy; the host waits for the bytes at the next
-        `wait()` / `sync()`."""
-        _refuse_state_page(state_page)
-        idx = self._page_index(pages)
+    def _gather_to_host(self, layers, idx: torch.Tensor, stored: list
+                        ) -> int:
+        """Append, per layer, each leaf's rows `idx` (an `index_select`:
+        stream order snapshots them before any later write), sent on the
+        card to pinned host memory by a non-blocking copy. Returns the
+        bytes."""
         cuda = self.device.type == "cuda"
-        stored, nbytes = [], 0
-        for cache in self.caches:
+        nbytes = 0
+        for i in layers:
             taken = {}
-            for name, leaf in cache.items():
-                part = leaf.index_select(0, idx)        # [k, ...]
+            for name, leaf in self.caches[i].items():
+                part = leaf.index_select(0, idx)
                 if cuda:
                     host = torch.empty(part.shape, dtype=part.dtype,
                                        pin_memory=True)
@@ -512,7 +616,36 @@ class ModelRunner:
                 taken[name] = part
                 nbytes += part.numel() * part.element_size()
             stored.append(taken)
-        if cuda:
+        return nbytes
+
+    def _scatter_from_host(self, layers, idx: torch.Tensor,
+                           stored: list) -> int:
+        """The inverse of `_gather_to_host`: `index_copy_` each layer's
+        stored rows back into rows `idx`, in place. Returns the bytes."""
+        nbytes = 0
+        for i, taken in zip(layers, stored):
+            for name, blob in taken.items():
+                self.caches[i][name].index_copy_(
+                    0, idx, blob.to(self.device, non_blocking=True))
+                nbytes += blob.numel() * blob.element_size()
+        return nbytes
+
+    def _swap_out_pages(self, request_id: int, pages: tuple,
+                        state_page: int = -1) -> None:
+        """Gather a victim's pages from every page-pool leaf (k_bits + v,
+        or the fp k + v) and, when it holds one, its state entry from
+        every state layer (the pooled cross caches), one `index_select`
+        each, on the current stream ahead of the plan's replays: stream
+        order snapshots the pre-recycle contents. On the card each gather
+        then goes to pinned host memory by a non-blocking copy; the host
+        waits for the bytes at the next `wait()` / `sync()`."""
+        stored: list[dict[str, torch.Tensor]] = []
+        nbytes = self._gather_to_host(self._pool_layers,
+                                      self._page_index(pages), stored)
+        if state_page >= 0:
+            nbytes += self._gather_to_host(
+                self._state_layers, self._page_index([state_page]), stored)
+        if self.device.type == "cuda":
             self._swaps_landed = torch.cuda.Event()
             self._swaps_landed.record()
         self._swap_store[request_id] = stored
@@ -531,18 +664,42 @@ class ModelRunner:
     def _swap_in_pages(self, request_id: int, pages: tuple,
                        state_page: int = -1) -> None:
         """Scatter a swapped request's stored pages into its freshly
-        allocated device pages with `index_copy_`, in place (the captured
-        graphs read these tensors): the exact inverse of the gather, so
-        the request resumes bit for bit with nothing re-prefilled."""
-        _refuse_state_page(state_page)
+        allocated device pages, and its state entry into its new entry,
+        with `index_copy_`, in place (the captured graphs read these
+        tensors): the exact inverse of the gather, so the request resumes
+        bit for bit with nothing re-prefilled."""
         stored = self._swap_store.pop(request_id)
-        idx = self._page_index(pages)
-        nbytes = 0
-        for cache, taken in zip(self.caches, stored):
-            for name, blob in taken.items():
-                cache[name].index_copy_(
-                    0, idx, blob.to(self.device, non_blocking=True))
-                nbytes += blob.numel() * blob.element_size()
+        n_pool = len(self._pool_layers)
+        nbytes = self._scatter_from_host(self._pool_layers,
+                                         self._page_index(pages),
+                                         stored[:n_pool])
+        if state_page >= 0 and len(stored) > n_pool:
+            nbytes += self._scatter_from_host(
+                self._state_layers, self._page_index([state_page]),
+                stored[n_pool:])
         self.stats["swap_in_bytes"] += nbytes
         if self.telemetry is not None:
             self.telemetry.on_swap_bytes(request_id, in_=nbytes)
+
+    # ------------------------------------------------------------------
+    # pooled state entry ops (in place, outside the captured graphs)
+    # ------------------------------------------------------------------
+    def _state_zero(self, entries: np.ndarray) -> None:
+        """Zero rows `entries` of every cross layer's cache: a dense
+        engine's slots, or a pooled engine's state entries."""
+        idx = torch.from_numpy(np.asarray(entries, np.int64)).to(self.device)
+        for i in self._cross_layers:
+            for leaf in self.caches[i].values():
+                leaf.index_fill_(0, idx, 0)
+
+    def _state_copy(self, src: int, dst: int, count: bool = True) -> None:
+        """Copy pooled state entry src -> dst in every state layer
+        (checkpoint capture when `count`, counted in state_ckpt_bytes;
+        checkpoint restore otherwise, counted by the scheduler)."""
+        nbytes = 0
+        for i in self._state_layers:
+            for leaf in self.caches[i].values():
+                leaf[dst].copy_(leaf[src])
+                nbytes += leaf[0].numel() * leaf.element_size()
+        if count:
+            self.stats["state_ckpt_bytes"] += nbytes

@@ -600,6 +600,27 @@ def test_cpu_tensors_never_launch_kernels(jax_ref):
     assert not any(counts.values()), counts
 
 
+def test_split_launch_counters_ride_with_the_counts():
+    """The split counters (K1's non-causal launches, K4's cross-tagged
+    ones) are zeroed by a reset, added from a graph's replay counts, and
+    left as they are by a restore from counts that do not hold them."""
+    splits = {f"{pre.NAME}.noncausal_launches", f"{dec.NAME}.cross_launches"}
+    ops.reset_launch_counts()
+    every = ops.launch_counts(splits=True)
+    assert set(every) == set(ops.launch_counts()) | splits
+    assert not any(every.values())
+    ops.add_launch_counts({pre.NAME: 3, dec.NAME: 2,
+                           f"{pre.NAME}.noncausal_launches": 1,
+                           f"{dec.NAME}.cross_launches": 2})
+    got = ops.launch_counts(splits=True)
+    assert [got[k] for k in sorted(splits)] == [2, 1]
+    assert (got[pre.NAME], got[dec.NAME]) == (3, 2)
+    ops.reset_launch_counts(ops.launch_counts())
+    assert ops.launch_counts(splits=True) == got
+    ops.reset_launch_counts()
+    assert not any(ops.launch_counts(splits=True).values())
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs plain versions (on the card only)
 # ---------------------------------------------------------------------------
@@ -629,6 +650,37 @@ def test_prefill_cuda_matches_plain(cuda, case, vdtype):
                                 **kw)
     torch.cuda.synchronize()
     assert pre.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+
+# the cross layers' chunk of llama-3.2-vision-11b: every query attends all
+# T image keys (no causal mask), T = 1601 not a multiple of a tile, d 128,
+# 4 query heads a kv head; nsel below, at, and past the valid keys
+CUDA_CROSS_CASES = {
+    # name: (b, h, hk, s, t, d, dv, nsel, q_offset)
+    "vision_t1601": (2, 8, 2, 70, 1601, 128, 128, 479, [0, 512]),
+    "nsel_at_t": (1, 8, 2, 64, 1601, 128, 128, 1601, [37]),
+    "nsel_past_t": (2, 4, 1, 33, 1601, 128, 128, 2000, [5, 0]),
+    "short_t": (1, 4, 1, 96, 40, 64, 64, 8, [0]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CUDA_CROSS_CASES))
+def test_prefill_noncausal_cuda_matches_plain(cuda, case, vdtype):
+    b, h, hk, s, t, d, dv, nsel, qoff = CUDA_CROSS_CASES[case]
+    qb, kb, v = _prefill_inputs(b, h, hk, s, t, d, dv, seed=len(case))
+    v = torch.from_numpy(v).to(vdtype)
+    kw = dict(d=d, nsel=nsel, scale=0.125, kv_length=t, q_offset=qoff,
+              causal=False)
+    want = ops.prefill_attention(_t(qb), _t(kb), v, **kw)
+    before = (pre.launches, pre.noncausal_launches)
+    got = ops.prefill_attention(_t(qb).to(cuda), _t(kb).to(cuda), v.to(cuda),
+                                **kw)
+    torch.cuda.synchronize()
+    assert (pre.launches, pre.noncausal_launches) == (before[0] + 1,
+                                                      before[1] + 1)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
 
 
@@ -833,7 +885,11 @@ def test_split_paged_decode_compacted_cuda_matches_plain(cuda, page_topn):
 
 
 CUDA_DECODE_CASES = dict(DECODE_CASES, long_d128_dv128=(
-    1, 4, 1, 24000, 128, 128, 500, [23900]))
+    1, 4, 1, 24000, 128, 128, 500, [23900]),
+    # a cross layer's decode step: the 1601-key image cache, d 128, G 4,
+    # 8 kv heads, every key valid, nsel below and past the 1601 keys
+    vision_cross_t1601=(2, 32, 8, 1601, 128, 128, 479, [1601, 1601]),
+    vision_cross_nsel_past_t=(1, 32, 8, 1601, 128, 128, 2000, [1601]))
 
 
 @pytest.mark.cuda
@@ -847,11 +903,13 @@ def test_decode_cuda_matches_plain(cuda, case, vdtype):
     lens = torch.tensor(lengths, dtype=torch.int32)
     kw = dict(d=d, nsel=nsel, scale=0.125, bitplanes=True)
     want = ops.decode_attention(_t(qb), planes, v, lengths=lens, **kw)
-    before = dec.launches
+    cross = case.startswith("vision_cross")     # tags the launch only
+    before = (dec.launches, dec.cross_launches)
     got = ops.decode_attention(_t(qb).to(cuda), planes.to(cuda), v.to(cuda),
-                               lengths=lens.to(cuda), **kw)
+                               lengths=lens.to(cuda), cross=cross, **kw)
     torch.cuda.synchronize()
-    assert dec.launches == before + 1
+    assert (dec.launches, dec.cross_launches) == (before[0] + 1,
+                                                  before[1] + cross)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
 
 

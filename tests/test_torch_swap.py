@@ -143,15 +143,47 @@ def test_swap_tokens_and_counters_match_jax_engine(binary):
 
 def test_swap_requires_the_paged_cache_and_refuses_state_entries():
     """As in JAX, a dense cache has no pages to swap (a construction
-    error); a pooled state entry (hybrid models) is not ported and raises,
-    naming the ROADMAP item."""
+    error). A pooled state entry, which the port refused before it served
+    cross-attention models (the test keeps its name), now moves with the
+    victim's pages: on reduced llama-3.2-vision-11b, pages and the state
+    entry of every cross layer go to the host and come back into other
+    pages and another entry bit for bit, their bytes counted as the JAX
+    runner counts them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
     with pytest.raises(ValueError, match="paged"):
         _engine(dict(paged=False, swap_pages=4))
-    runner = _engine(SWAP).runner
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner._swap_out_pages(0, (1,), state_page=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner._swap_in_pages(0, (1,), state_page=0)
+    cfg = get_config("llama-3.2-vision-11b", reduced=True)
+    model = T.init_params(cfg, torch.Generator().manual_seed(5))
+    eng = Engine(cfg, model, _scfg(ServeConfig, 2, **SWAP), device="cpu")
+    runner = eng.runner
+    assert runner._pool_layers == [0, 1, 2, 3]
+    assert runner._state_layers == [4]
+    gen = torch.Generator().manual_seed(6)
+    for cache in runner.caches:
+        for leaf in cache.values():
+            leaf.copy_(torch.randint(-9, 9, leaf.shape, generator=gen))
+    want = ([{k: v[[0, 2]].clone() for k, v in c.items()}
+             for c in runner.caches[:4]],
+            {k: v[1].clone() for k, v in runner.caches[4].items()})
+    runner._swap_out_pages(7, (0, 2), state_page=1)
+    runner._finalize_swaps()
+    for cache in runner.caches:
+        for leaf in cache.values():
+            leaf.zero_()
+    runner._swap_in_pages(7, (1, 0), state_page=0)
+    for c, w in zip(runner.caches[:4], want[0]):
+        for k in c:
+            assert torch.equal(c[k][[1, 0]], w[k])
+    for k, leaf in runner.caches[4].items():
+        assert torch.equal(leaf[0], want[1][k])
+    page = sum(v[0].numel() * v.element_size()
+               for c in runner.caches[:4] for v in c.values())
+    entry = sum(v[0].numel() * v.element_size()
+                for v in runner.caches[4].values())
+    assert eng.stats["swap_out_bytes"] == 2 * page + entry
+    assert eng.stats["swap_in_bytes"] == 2 * page + entry
+    assert not runner._swap_store
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
