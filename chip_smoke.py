@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs six phases; any failure exits non-zero before the result line.
+runs eight phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -43,7 +43,10 @@ runs six phases; any failure exits non-zero before the result line.
    every slot live), K2 at ~2k-token rows, K3 on K2's pools (exact at
    n_sel 64 and 255), K4 over the 1601-key cross cache and K4 over a
    dense engine's 4097-position self-attention cache at K2's lengths;
-   the two cross kernels are also checked at nsel 2000 > T.
+   the two cross kernels are also checked at nsel 2000 > T. Then four at
+   dbrx-132b's (48 heads over 8 kv heads: G 6; phase 8's path): K1
+   causal, K2, K3 (exact at n_sel 64 and 255) and K4 over the dense
+   self-attention cache, the same cases as vision's.
 3. Cross-device: smollm-135m widths at 2 layers in float32, the same
    seeded weights on the CPU (plain versions) and on the card (kernels):
    first-step logits allclose (atol 2e-3, rtol 2e-3: float32 sums in
@@ -59,7 +62,10 @@ runs six phases; any failure exits non-zero before the result line.
    card's packed bits (`bits_tape`: float32 rounding flips a few sign
    bits of near-zero values between the devices at these widths, which
    alone moves logits far past the tolerance), paged with pooled cross
-   state and dense, binary and fp, graph == eager bit for bit.
+   state and dense, binary and fp, graph == eager bit for bit. Then the
+   same on reduced jamba-1.5-large-398b (one MMMMAMMM group, MoE FFNs at
+   every second position, d 64, float32, text only): SSM state pooled or
+   in dense rows.
 4. The slice at full size: smollm-135m, all 30 layers, bf16, seeded
    random weights, prefill chunks of 512, 4 slots, 8 staggered requests
    with 512-3072-token prompts and 32 new tokens each, max_len 4096
@@ -103,11 +109,26 @@ runs six phases; any failure exits non-zero before the result line.
    dense step K4 40 (8 tagged cross), fp none, as the wrappers count;
    dense, page_topn-255 and swap tokens equal paged's bit for bit; every
    swap moves the victim's state entry; every pool drains.
+7. mamba2-130m as published (24 SSM layers, d 768, state 128, bf16,
+   seeded weights drawn on the card), phase 4's workload, HAD off (no
+   attention): paged (pooled SSM state), dense, a 384-page pool with a
+   host pool (each swap-out moves the victim's state entry), the same
+   pool without one (recompute), each with 2 graphs and no kernel
+   launch, tokens equal paged's; then 4 requests sharing a 1024-token
+   prefix one at a time, warm (pages and a state checkpoint restored,
+   state_restores > 0) equal to cold.
+8. dbrx-132b at full width and 8 of its 40 layers (16 experts top-4,
+   27.3 B parameters drawn on the card after phase 6's model is freed),
+   phase 6's prompts without images: paged (K1 + K2), dense (K1 + K4),
+   page_topn 255 (K3 + K2) and fp paged, each with 2 graphs and the
+   launch rule; dense and page_topn-255 tokens equal paged's.
 
-`--profile DIR` then profiles the prefill of one 3072-token prompt and
-decode windows of the paged, the dense, the full-precision paged and the
+`--profile DIR` profiles the prefill of one 3072-token prompt and decode
+windows of the paged, the dense, the full-precision paged and the
 page_topn-64 engine (the last unfused and fused in turn), all graphed,
-and a decode window of phase 6's paged vision engine.
+after phase 5; a prefill and a decode window of phase 6's paged vision
+engine; and a decode window each of phase 7's and phase 8's paged
+engines.
 Then the kernel record line and, last, the result line.
 """
 from __future__ import annotations
@@ -141,6 +162,14 @@ K2_VISION = "binary_paged_decode_attention[vision]"
 K3_VISION = "binary_page_score[vision]"
 K4_CROSS = "binary_decode_attention[vision cross]"
 K4_VISION = "binary_decode_attention[vision self]"
+DBRX = "dbrx-132b"
+# phase 2's records at dbrx-132b's serving shapes (phase 8's path)
+K1_DBRX = "binary_prefill_attention[dbrx causal]"
+K2_DBRX = "binary_paged_decode_attention[dbrx]"
+K3_DBRX = "binary_page_score[dbrx]"
+K4_DBRX = "binary_decode_attention[dbrx self]"
+MAMBA = "mamba2-130m"
+JAMBA = "jamba-1.5-large-398b"
 
 
 def log(msg: str) -> None:
@@ -463,7 +492,8 @@ def phase2() -> dict:
     records.update(_phase2_k4(gen))
     records.update(_phase2_k5(gen))
     _phase2_fp(gen)
-    records.update(_phase2_vision(gen))
+    records.update(_phase2_wide(gen, **VISION_SHAPES))
+    records.update(_phase2_wide(gen, **DBRX_SHAPES))
     return records
 
 
@@ -722,13 +752,19 @@ def _phase2_fp(gen) -> None:
             f"call")
 
 
-# llama-3.2-vision-11b serving shapes: d = 128 -> 4 words, 32 heads over 8
-# kv heads (4 query heads each), bf16 V of width 128, 4 slots, 512-token
-# chunks, 16-token pages over 4096-position tables, 1601 image keys a
-# cross layer, top-N 479 (max_len 4096)
-VB, VH, VHK, VD, V_IMG = 4, 32, 8, 128, 1601
-VG, VW, VDV = VH // VHK, VD // 32, VD
+# llama-3.2-vision-11b's and dbrx-132b's serving shapes: d = 128 -> 4
+# words, 32 heads over 8 kv heads (4 query heads each), or 48 over 8 (6
+# each), bf16 V of width 128, 4 slots, 512-token chunks, 16-token pages
+# over 4096-position tables, top-N 479 (max_len 4096); vision's cross
+# layers hold 1601 image keys
+VB, VD, V_IMG = 4, 128, 1601
+VW, VDV = VD // 32, VD
 V_SCALE = VD ** -0.5              # sigma_q = sigma_k = 1
+VISION_SHAPES = dict(h=32, hk=8, tag="vision", names=dict(
+    k1=K1_VISION, k1_cross=K1_CROSS, k2=K2_VISION, k3=K3_VISION,
+    k4=K4_VISION, k4_cross=K4_CROSS))
+DBRX_SHAPES = dict(h=48, hk=8, tag="dbrx", names=dict(
+    k1=K1_DBRX, k2=K2_DBRX, k3=K3_DBRX, k4=K4_DBRX))
 
 
 def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal):
@@ -782,21 +818,22 @@ def _decode_rows_work(q, k_rows, lens, index_bytes, *, d, nsel, dv):
     return nbytes, [(nops, CUDA_CORE_OPS_PER_S)]
 
 
-def _phase2_vision(gen) -> dict:
-    """K1, K2, K3 and K4 at llama-3.2-vision-11b's serving shapes (phase
-    6's path), each against its plain version at phase 2's tolerances,
-    timed by CUDA events (K3 by device time), with its bound and host
-    time: K1 causal, slot 0's last 512-query chunk of a 2048-token prompt
-    over the 4096-position table, the other slots idle (a self-attention
-    layer's chunk); K1 non-causal over the 1601 image keys, every query
-    of every slot live (a cross layer's chunk: the JAX step passes no
-    q_length there); K2 over 4 slots at ragged ~2k lengths; K3, the fused
-    page select, on K2's pools, exact at n_sel 64 (it selects) and 255
-    (phase 6's page_topn, which keeps every resident page), timed at 255;
-    K4 over the 1601-key cross cache (a cross layer's decode step, paged
-    engine or not); K4 over a dense engine's self-attention cache (4097
-    positions: max_len and its trash position) at K2's lengths. The two
-    cross kernels are also checked at nsel 2000, past the 1601 keys."""
+def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
+    """K1, K2, K3 and K4 at a d-128 model's serving shapes (h query heads
+    over hk kv heads; phase 6's and phase 8's paths), each against its
+    plain version at phase 2's tolerances, timed by CUDA events (K3 by
+    device time), with its bound and host time: K1 causal, slot 0's last
+    512-query chunk of a 2048-token prompt over the 4096-position table,
+    the other slots idle (a self-attention layer's chunk); K2 over 4 slots
+    at ragged ~2k lengths; K3, the fused page select, on K2's pools, exact
+    at n_sel 64 (it selects) and 255 (phases 6 and 8's page_topn, which
+    keeps every resident page), timed at 255; K4 over a dense engine's
+    self-attention cache (4097 positions: max_len and its trash position)
+    at K2's lengths. With cross layers (`names` has "k1_cross"): K1
+    non-causal over the 1601 image keys, every query of every slot live
+    (a cross layer's chunk: the JAX step passes no q_length there), and K4
+    over the 1601-key cross cache (a cross layer's decode step, paged
+    engine or not), both also checked at nsel 2000, past the 1601 keys."""
     import torch
     from repro_torch.kernels import binary_decode_attention as dec
     from repro_torch.kernels import binary_paged_decode_attention as pdec
@@ -804,29 +841,32 @@ def _phase2_vision(gen) -> dict:
     from repro_torch.kernels import ops, ref
     records = {}
     t_tab = NB * PAGE
+    g_size = h // hk
 
     def per_row(vals):
         return torch.tensor(vals, dtype=torch.int32,
-                            device="cuda").repeat_interleave(VH)
+                            device="cuda").repeat_interleave(h)
 
-    cases = {
-        K1_VISION: (t_tab, True, per_row([1536, 0, 0, 0]),
-                    per_row([512, 0, 0, 0])),
-        K1_CROSS: (V_IMG, False, per_row([1536, 512, 0, 1000]),
-                   per_row([CHUNK] * VB))}
+    cases = {names["k1"]: (t_tab, True, per_row([1536, 0, 0, 0]),
+                           per_row([512, 0, 0, 0]))}
+    if "k1_cross" in names:
+        cases[names["k1_cross"]] = (V_IMG, False,
+                                    per_row([1536, 512, 0, 1000]),
+                                    per_row([CHUNK] * VB))
     for name, (t, causal, qoff, qlen) in cases.items():
-        q = _bits((VB * VH, CHUNK, VD), gen)
-        k = _bits((VB * VHK, t, VD), gen)
-        v = torch.randn((VB * VHK, t, VDV), generator=gen,
+        q = _bits((VB * h, CHUNK, VD), gen)
+        k = _bits((VB * hk, t, VD), gen)
+        v = torch.randn((VB * hk, t, VDV), generator=gen,
                         device="cuda").to(torch.bfloat16)
         kvl = qoff + qlen if causal else torch.full_like(qoff, t)
         err = 0.0
         for nsel in (NSEL, 2000) if not causal else (NSEL,):
             kw = dict(d=VD, nsel=nsel, scale=V_SCALE, kv_length=kvl,
                       q_offset=qoff, q_length=qlen, causal=causal)
-            got = pre.prefill_attention(q, k, v, group_size=VG,
-                                        n_kv_heads=VHK, **kw)
-            want = ref.prefill_attention_ref(q, k, v, group_size=VG, **kw)
+            got = pre.prefill_attention(q, k, v, group_size=g_size,
+                                        n_kv_heads=hk, **kw)
+            want = ref.prefill_attention_ref(q, k, v, group_size=g_size,
+                                             **kw)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **TOL)
             e = (got - want).abs().max().item()
@@ -837,11 +877,11 @@ def _phase2_vision(gen) -> dict:
                   q_offset=qoff, q_length=qlen, causal=causal)
 
         def k1():
-            return pre.prefill_attention(q, k, v, group_size=VG,
-                                         n_kv_heads=VHK, **kw)
+            return pre.prefill_attention(q, k, v, group_size=g_size,
+                                         n_kv_heads=hk, **kw)
         ms = cuda_ms(k1, iters=20)
         plain_ms = cuda_ms(lambda: ref.prefill_attention_ref(
-            q, k, v, group_size=VG, **kw), iters=2, warmup=1)
+            q, k, v, group_size=g_size, **kw), iters=2, warmup=1)
         work = _k1_work(q, k, VDV, kvl, qoff, qlen, d=VD, nsel=NSEL,
                         causal=causal)
         records[name] = _record(
@@ -854,10 +894,10 @@ def _phase2_vision(gen) -> dict:
     n_pages = VB * NB
     lens = torch.tensor([2063, 1030, 1790, 527], dtype=torch.int32,
                         device="cuda")
-    qd = _bits((VB, VH, VD), gen)
-    k_pool = _bits((n_pages + 1, VHK, PAGE, VD), gen).transpose(-1, -2) \
+    qd = _bits((VB, h, VD), gen)
+    k_pool = _bits((n_pages + 1, hk, PAGE, VD), gen).transpose(-1, -2) \
         .contiguous()
-    v_pool = torch.randn((n_pages + 1, VHK, PAGE, VDV), generator=gen,
+    v_pool = torch.randn((n_pages + 1, hk, PAGE, VDV), generator=gen,
                          device="cuda").to(torch.bfloat16)
     bt = torch.randperm(n_pages, generator=gen, device="cuda").reshape(
         VB, NB).to(torch.int32)
@@ -867,15 +907,15 @@ def _phase2_vision(gen) -> dict:
     got = ops.paged_decode_attention(qd, k_pool, v_pool, bt, lengths=lens,
                                      **kw)
     want = ref.paged_decode_attention_ref(
-        qd.reshape(VB, VHK, VG, VW), k_pool, v_pool, bt, lengths=lens,
-        **kw).reshape(VB, VH, VDV)
+        qd.reshape(VB, hk, g_size, VW), k_pool, v_pool, bt, lengths=lens,
+        **kw).reshape(VB, h, VDV)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
     err = (got - want).abs().max().item()
-    log(f"phase 2: {K2_VISION} lengths {lens.tolist()} max_abs_err "
+    log(f"phase 2: {names['k2']} lengths {lens.tolist()} max_abs_err "
         f"{err:.3e}")
-    bt_rows, counts, len_f = ops._row_tables(bt, lens, VHK, PAGE)
-    qf = qd.reshape(VB * VHK, VG, VW).contiguous()
+    bt_rows, counts, len_f = ops._row_tables(bt, lens, hk, PAGE)
+    qf = qd.reshape(VB * hk, g_size, VW).contiguous()
 
     def k2():
         return pdec.paged_decode_attention(qf, k_pool, v_pool, bt_rows,
@@ -885,31 +925,31 @@ def _phase2_vision(gen) -> dict:
         qf, k_pool, v_pool, bt_rows, counts, **kw), iters=5, warmup=1)
     from repro_torch.models.attention_block import gather_pages
     k_rows = gather_pages(k_pool, bt.clamp_min(0), 3).transpose(-1, -2) \
-        .reshape(VB * VHK, NB * PAGE, VW)
-    work = _decode_rows_work(qf, k_rows, lens.repeat_interleave(VHK),
-                             2 * VB * VHK * NB * 4, d=VD, nsel=NSEL, dv=VDV)
-    records[K2_VISION] = _record(
+        .reshape(VB * hk, NB * PAGE, VW)
+    work = _decode_rows_work(qf, k_rows, lens.repeat_interleave(hk),
+                             2 * VB * hk * NB * 4, d=VD, nsel=NSEL, dv=VDV)
+    records[names["k2"]] = _record(
         pdec, "src/repro/kernels/binary_paged_decode_attention.py:109", err,
-        ms, plain_ms, work, host_us(k2), name=K2_VISION)
-    records[K3_VISION] = _phase2_vision_k3(qf, k_pool, bt_rows, counts,
-                                           len_f)
+        ms, plain_ms, work, host_us(k2), name=names["k2"])
+    records[names["k3"]] = _phase2_wide_k3(qf, k_pool, bt_rows, counts,
+                                           len_f, names["k3"])
     del k_pool, v_pool, k_rows
 
     # K4 over a dense engine's self-attention cache at K2's lengths
-    r, t_dense = VB * VHK, t_tab + 1
-    qd = _bits((r, VG, VD), gen)
+    r, t_dense = VB * hk, t_tab + 1
+    qd = _bits((r, g_size, VD), gen)
     k = _bits((r, t_dense, VD), gen)
     planes = k.transpose(-1, -2).contiguous()
     v = torch.randn((r, t_dense, VDV), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    len_f = lens.repeat_interleave(VHK)
+    len_f = lens.repeat_interleave(hk)
     kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
     got = dec.decode_attention(qd, planes, v, len_f, **kw)
     want = ref.decode_attention_ref(qd, k, v, lengths=len_f, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
     err = (got - want).abs().max().item()
-    log(f"phase 2: {K4_VISION} T {t_dense} lengths {lens.tolist()} "
+    log(f"phase 2: {names['k4']} T {t_dense} lengths {lens.tolist()} "
         f"max_abs_err {err:.3e}")
 
     def k4_self():
@@ -918,14 +958,16 @@ def _phase2_vision(gen) -> dict:
     plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
         qd, k, v, lengths=len_f, **kw), iters=5, warmup=1)
     work = _decode_rows_work(qd, k, len_f, r * 4, d=VD, nsel=NSEL, dv=VDV)
-    records[K4_VISION] = _record(
+    records[names["k4"]] = _record(
         dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
-        plain_ms, work, host_us(k4_self), name=K4_VISION)
+        plain_ms, work, host_us(k4_self), name=names["k4"])
     del k, planes, v
+    if "k4_cross" not in names:
+        return records
 
-    # K4 over the cross cache: every slot's 8 kv heads, all 1601 keys valid
-    r = VB * VHK
-    qd = _bits((r, VG, VD), gen)
+    # K4 over the cross cache: every slot's kv heads, all 1601 keys valid
+    name = names["k4_cross"]
+    qd = _bits((r, g_size, VD), gen)
     k = _bits((r, V_IMG, VD), gen)
     planes = k.transpose(-1, -2).contiguous()
     v = torch.randn((r, V_IMG, VDV), generator=gen,
@@ -940,7 +982,7 @@ def _phase2_vision(gen) -> dict:
         torch.testing.assert_close(got, want, **TOL)
         e = (got - want).abs().max().item()
         err = max(err, e) if nsel == NSEL else err
-        log(f"phase 2: {K4_CROSS} nsel {nsel} max_abs_err {e:.3e}")
+        log(f"phase 2: {name} nsel {nsel} max_abs_err {e:.3e}")
     kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
 
     def k4():
@@ -949,16 +991,16 @@ def _phase2_vision(gen) -> dict:
     plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
         qd, k, v, lengths=len_f, **kw), iters=5, warmup=1)
     work = _decode_rows_work(qd, k, len_f, r * 4, d=VD, nsel=NSEL, dv=VDV)
-    records[K4_CROSS] = _record(
+    records[name] = _record(
         dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
-        plain_ms, work, host_us(k4), name=K4_CROSS)
+        plain_ms, work, host_us(k4), name=name)
     return records
 
 
-def _phase2_vision_k3(qf, k_pool, bt_rows, counts, len_f) -> dict:
-    """K3 on the vision K2 case's pools: bounds, tables, counts and
+def _phase2_wide_k3(qf, k_pool, bt_rows, counts, len_f, name) -> dict:
+    """K3 on a `_phase2_wide` K2 case's pools: bounds, tables, counts and
     logical ids equal the plain version's exactly at n_sel 64 and 255;
-    timed by device time at 255, phase 6's page_topn."""
+    timed by device time at 255, the full-size runs' page_topn."""
     import torch
     from repro_torch.kernels import binary_page_score as pscore
     from repro_torch.kernels import ref
@@ -971,10 +1013,10 @@ def _phase2_vision_k3(qf, k_pool, bt_rows, counts, len_f) -> dict:
         want = ref.paged_select_pages_ref(qf, k_pool, bt_rows, counts, len_f,
                                           d=VD, page=PAGE, n_sel=n_sel)
         torch.cuda.synchronize()
-        check(torch.equal(scores, want_s), f"{K3_VISION} bounds {n_sel}")
+        check(torch.equal(scores, want_s), f"{name} bounds {n_sel}")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"{K3_VISION} tables/counts/logical n_sel {n_sel}")
-        log(f"phase 2: {K3_VISION} n_sel {n_sel} exact (bounds, tables, "
+              f"{name} tables/counts/logical n_sel {n_sel}")
+        log(f"phase 2: {name} n_sel {n_sel} exact (bounds, tables, "
             f"counts, logical; {int((counts > 0).sum())} listed pages, "
             f"{int((want[1] > 0).sum())} kept)")
     n_sel = 255
@@ -987,12 +1029,14 @@ def _phase2_vision_k3(qf, k_pool, bt_rows, counts, len_f) -> dict:
         qf, k_pool, bt_rows, counts, len_f, d=VD, page=PAGE, n_sel=n_sel),
         iters=10, warmup=2)
     r, nb = bt_rows.shape
+    g_size = qf.shape[1]
     n_keys = len_f.sum().item()
-    work = (r * VG * VW * 4 + n_keys * VW * 4 + 2 * r * nb * 4 + r * 4
+    work = (r * g_size * VW * 4 + n_keys * VW * 4 + 2 * r * nb * 4 + r * 4
             + 3 * r * n_sel * 4,
-            [(n_keys * VW * 2 + r * nb * VG * VW * 6, CUDA_CORE_OPS_PER_S)])
+            [(n_keys * VW * 2 + r * nb * g_size * VW * 6,
+              CUDA_CORE_OPS_PER_S)])
     return _record(pscore, "src/repro/kernels/binary_page_score.py:68", 0.0,
-                   ms, plain_ms, work, host_us(k3), name=K3_VISION)
+                   ms, plain_ms, work, host_us(k3), name=name)
 
 
 # ---------------------------------------------------------------------------
@@ -1177,36 +1221,70 @@ def bits_tape(tape: list, replay: bool):
 def phase3_vision() -> None:
     """Phase 3 at llama-3.2-vision-11b's widths: one group of its 5 layers
     (AAAAC), float32, the vocabulary cut to V3_VOCAB so that the CPU twin
-    stays small; seeded weights drawn on the CPU and copied to the card.
-    At these widths float32 rounding flips sign bits of near-zero queries
-    and keys between the CPU's and the card's GEMMs, each flip moving a
-    query's whole score row, so the binary runs are compared on the
-    card's bits (`bits_tape`): the card records them, the CPU replays
-    them and counts the words of its own that differ. First-step logits
-    (a 64-token chunk of two slots, each with its own seeded [1601, 1280]
-    image) allclose at CROSS_TOL on the paged cache with pooled cross
-    state and on the dense cache, binary (on the card's bits; the
-    difference on the CPU's own bits is printed) and fp; greedy tokens of
-    an image request and a text-only one equal on both devices on those
-    four paths (binary: the card's eager step recorded, the CPU
-    replaying); and on the card, graph == eager bit for bit on the four."""
+    stays small; seeded weights drawn on the CPU and copied to the card,
+    each first-step row with its own seeded [1601, 1280] image, and one
+    image request beside a text-only one (`_phase3_state`)."""
     import numpy as np
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
     cfg = get_config(VISION, n_layers=5, param_dtype="float32",
                      vocab_size=V3_VOCAB)
-    t0 = time.perf_counter()
-    cpu_model = T.init_params(cfg, torch.Generator().manual_seed(2))
-    gpu_model = T.Transformer(cfg, device="cuda")
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    gpu_model.refresh_scales()
-    log(f"phase 3 [vision]: {cfg.name} widths, layers {cfg.layer_pattern}, "
-        f"float32, vocabulary cut to {cfg.vocab_size} (of 128256), weights "
-        f"drawn on the CPU and copied in {time.perf_counter() - t0:.1f} s")
+    cpu_model, gpu_model = _phase3_models(cfg, 2, "vision",
+                                          f"vocabulary cut to "
+                                          f"{V3_VOCAB} (of 128256)")
     rng = np.random.default_rng(3)
     img = rng.standard_normal((2, cfg.n_image_tokens, cfg.frontend_dim),
                               dtype=np.float32)
+    _phase3_state("vision", cfg, cpu_model, gpu_model, rng, img)
+
+
+def phase3_jamba() -> None:
+    """Phase 3 on reduced jamba-1.5-large-398b: one MMMMAMMM group (SSM
+    layers around one attention layer, MoE FFNs at every second
+    position, 4 experts top-2, d 64), float32 (`_phase3_state`, text
+    only): the SSM state pooled or in dense rows, the MoE groups spanning
+    the batch rows."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA, reduced=True)
+    cpu_model, gpu_model = _phase3_models(cfg, 4, "jamba", "reduced")
+    _phase3_state("jamba", cfg, cpu_model, gpu_model,
+                  np.random.default_rng(5), None)
+
+
+def _phase3_models(cfg, seed: int, tag: str, note: str):
+    """Seeded weights drawn on the CPU, and a copy on the card."""
+    import torch
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cpu_model = T.init_params(cfg, torch.Generator().manual_seed(seed))
+    gpu_model = T.Transformer(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.refresh_scales()
+    log(f"phase 3 [{tag}]: {cfg.name} widths (d {cfg.d_model}), layers "
+        f"{cfg.layer_pattern}, {cfg.param_dtype}, {note}, weights drawn on "
+        f"the CPU and copied in {time.perf_counter() - t0:.1f} s")
+    return cpu_model, gpu_model
+
+
+def _phase3_state(tag, cfg, cpu_model, gpu_model, rng, img) -> None:
+    """Phase 3 for a model with per-slot state (cross caches, SSM state),
+    the same weights on the CPU and the card. At wide float32 layers,
+    rounding flips sign bits of near-zero queries and keys between the
+    CPU's and the card's GEMMs, each flip moving a query's whole score
+    row, so the binary runs are compared on the card's bits
+    (`bits_tape`): the card records them, the CPU replays them and counts
+    the words of its own that differ. First-step logits (a 64-token chunk
+    of two slots; with images `img` [2, T, frontend_dim], one a row)
+    allclose at CROSS_TOL on the paged cache with pooled state and on the
+    dense cache, binary (on the card's bits; the difference on the CPU's
+    own bits is printed) and fp; greedy tokens of two requests (with
+    images: the first with row 0's image, the second text-only) equal on
+    both devices on those four paths (binary: the card's eager step
+    recorded, the CPU replaying); and on the card, graph == eager bit for
+    bit on the four."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
     chunk = 64
     tok = rng.integers(0, cfg.vocab_size, (2, chunk)).astype(np.int32)
     args = dict(pos=np.array([0, 0], np.int32),
@@ -1247,12 +1325,14 @@ def phase3_vision() -> None:
                         f"{(own - gpu).abs().max().item():.3e})")
             diff = (cpu - gpu).abs().max().item()
             torch.testing.assert_close(gpu, cpu, **CROSS_TOL)
-            log(f"phase 3 [vision]: first-step logits with images ({kind} "
-                f"cache, {'binary' if binary else 'fp'}) cpu vs cuda "
+            log(f"phase 3 [{tag}]: first-step logits"
+                f"{'' if img is None else ' with images'} ({kind} cache, "
+                f"{'binary' if binary else 'fp'}) cpu vs cuda "
                 f"max_abs_diff {diff:.3e}" + note)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (70, 41)]
-    extras = [{"image_embeds": img[:1]}, None]
+    extras = ([None, None] if img is None
+              else [{"image_embeds": img[:1]}, None])
     scfg = dict(max_len=160, batch_slots=2, prefill_chunk=64, paged=True,
                 page_size=16)
     paths = (("paged", {}), ("dense", dict(paged=False)),
@@ -1275,14 +1355,16 @@ def phase3_vision() -> None:
         else:
             cpu = _generate(_engine(cfg, cpu_model, sc, "cpu"), prompts,
                             extras, 8)
-        check((cpu == gpu).all(), (kind, cpu, gpu))
-        log(f"phase 3 [vision]: greedy tokens, an image request and a "
-            f"text-only one ({kind}), equal on cpu and cuda{note}: "
-            f"{gpu.tolist()}")
+        check((cpu == gpu).all(), (tag, kind, cpu, gpu))
+        what = ("two requests" if img is None
+                else "an image request and a text-only one")
+        log(f"phase 3 [{tag}]: greedy tokens, {what} ({kind}), equal on "
+            f"cpu and cuda{note}: {gpu.tolist()}")
         _graph_vs_eager(cfg, gpu_model, sc, prompts, extras)
-        log(f"phase 3 [vision]: CUDA graphs == eager step ({kind}): logits "
-            f"of 2 prefill chunks (an image in the first) + 3 decode steps "
-            f"and greedy tokens, bit for bit")
+        first = "" if img is None else " (an image in the first)"
+        log(f"phase 3 [{tag}]: CUDA graphs == eager step ({kind}): logits "
+            f"of 2 prefill chunks{first} + 3 decode steps and greedy "
+            f"tokens, bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -1357,6 +1439,27 @@ def _result(eng, ids, results, gen, counts, wall, steps, metrics) -> dict:
                 wall=wall, steps=steps, stats=dict(eng.stats),
                 ttft=np.array([m.ttft for m in metrics]) * 1e3,
                 itl=np.array([x for m in metrics for x in m.itl]) * 1e3)
+
+
+def _latency(r) -> str:
+    import numpy as np
+    st = r["stats"]
+    return (f"wall {r['wall']:.3f} s, {st['tokens_generated'] / r['wall']:.2f}"
+            f" generated tok/s, TTFT p50/p95 "
+            f"{np.percentile(r['ttft'], 50):.2f}/"
+            f"{np.percentile(r['ttft'], 95):.2f} ms, ITL p50/p95 "
+            f"{np.percentile(r['itl'], 50):.2f}/"
+            f"{np.percentile(r['itl'], 95):.2f} ms")
+
+
+def _swap_spy(eng, moved: list) -> None:
+    """Record the state entry of every swap-out the runner makes."""
+    swap_out = eng.runner._swap_out_pages
+
+    def spy(rid, pages, state_page=-1):
+        moved.append(state_page)
+        return swap_out(rid, pages, state_page)
+    eng.runner._swap_out_pages = spy
 
 
 def _check_launches(name, eng, r, decoders) -> None:
@@ -1435,12 +1538,7 @@ def phase4():
             f"{r['counts']}, decode pages attended "
             f"{st['decode_pages_touched']}, decode KV bytes "
             f"{st['decode_hbm_bytes']}, tokens sha1 {r['digest']}")
-        log(f"phase 4 [{name}]: wall {r['wall']:.3f} s, "
-            f"{st['tokens_generated'] / r['wall']:.2f} generated tok/s, TTFT "
-            f"p50/p95 {np.percentile(r['ttft'], 50):.2f}/"
-            f"{np.percentile(r['ttft'], 95):.2f} ms, ITL p50/p95 "
-            f"{np.percentile(r['itl'], 50):.2f}/"
-            f"{np.percentile(r['itl'], 95):.2f} ms, peak "
+        log(f"phase 4 [{name}]: {_latency(r)}, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         runs[name] = r
         if name in ("paged", "dense", "page_topn_64", "fp_paged",
@@ -1739,13 +1837,14 @@ def _vision_workload(cfg):
     return lens, prompts, extras, 16, base
 
 
-def _vision_launches(eng, st) -> dict:
-    """Phase 6's launch rule, from the engine's layer kinds, with the
-    split counters: K1 once a layer for each prefill chunk (self- and
-    cross-attention layers; the cross layers' non-causal); a paged decode
-    step K2 at each self-attention layer (K3 beside it with page_topn)
-    and K4 at each cross layer; a dense decode step K4 at every layer
-    (the cross layers' tagged); the full-precision baseline none."""
+def _launch_rule(eng, st) -> dict:
+    """Phases 6-8's launch rule, from the engine's layer kinds, with the
+    split counters: K1 once an attention layer for each prefill chunk
+    (self- and cross-attention layers; the cross layers' non-causal); a
+    paged decode step K2 at each self-attention layer (K3 beside it with
+    page_topn) and K4 at each cross layer; a dense decode step K4 at every
+    attention layer (the cross layers' tagged); the full-precision
+    baseline none, nor an SSM layer (no kernel of its own)."""
     from repro_torch.kernels import binary_decode_attention as dec
     from repro_torch.kernels import binary_page_score as pscore
     from repro_torch.kernels import binary_paged_decode_attention as pdec
@@ -1780,7 +1879,7 @@ def phase6():
     Runs: paged (cross caches in a pooled state allocation), dense,
     page_topn 255, full-precision paged, and paged with a pool small
     enough to preempt and a host pool (swap-out preemption). Each engine
-    holds 2 graphs and follows `_vision_launches` (counts zeroed just
+    holds 2 graphs and follows `_launch_rule` (counts zeroed just
     before a run, read just after); dense and page_topn-255 tokens equal
     paged's bit for bit; the swap run swaps at least once, each victim's
     state entry with its pages, and gives paged's tokens; the state pool
@@ -1835,20 +1934,14 @@ def phase6():
     for name, kw in paths.items():
         eng = _engine(cfg, model, dict(base, **kw), "cuda",
                       telemetry=Telemetry())
-        moved = []
-        if name == "paged_swap":
-            swap_out = eng.runner._swap_out_pages
-
-            def spy(rid, pages, state_page=-1, swap_out=swap_out):
-                moved.append(state_page)
-                return swap_out(rid, pages, state_page)
-            eng.runner._swap_out_pages = spy
+        moved: list = []
+        _swap_spy(eng, moved)
         torch.cuda.reset_peak_memory_stats()
         r = _serve_run(eng, prompts, gen, extras=extras)
         st = r["stats"]
         check(eng.runner.graph_count() == 2,
               (name, "graphs", eng.runner.graph_count()))
-        want = _vision_launches(eng, st)
+        want = _launch_rule(eng, st)
         check(r["splits"] == want and st["decode_steps"] > 0,
               (name, r["splits"], want))
         check(eng.allocator is None or eng.allocator.in_use == 0,
@@ -1867,12 +1960,7 @@ def phase6():
             f"{cache_b} of which cross "
             f"{'state pool' if eng.statepool is not None else 'dense'} "
             f"{state_b}")
-        log(f"phase 6 [{name}]: wall {r['wall']:.3f} s, "
-            f"{st['tokens_generated'] / r['wall']:.2f} generated tok/s, TTFT "
-            f"p50/p95 {np.percentile(r['ttft'], 50):.2f}/"
-            f"{np.percentile(r['ttft'], 95):.2f} ms, ITL p50/p95 "
-            f"{np.percentile(r['itl'], 50):.2f}/"
-            f"{np.percentile(r['itl'], 95):.2f} ms, peak "
+        log(f"phase 6 [{name}]: {_latency(r)}, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if name == "paged_swap":
             check(st["swap_outs"] > 0, "paged_swap: no swap-out (void)")
@@ -1911,6 +1999,304 @@ def phase6():
     log("phase 6: dense, page_topn 255 and swap tokens equal the paged "
         "run's bit for bit")
     return totals, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 7: mamba2-130m at full size
+# ---------------------------------------------------------------------------
+
+def _state_bytes(eng) -> int:
+    """Bytes of the engine's SSM state (dense rows or the state pool)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for i in eng.runner._ssm_layers
+               for leaf in eng.runner.caches[i].values())
+
+
+def phase7():
+    """mamba2-130m as published (24 SSM layers, d 768, state 128, expand 2,
+    head_dim 64, chunk 128, vocab 50280, bf16), seeded weights drawn on
+    the card, served with phase 4's workload (4 slots, 512-token chunks,
+    16-token pages, max_len 4096, 8 requests of 512-3072 tokens, 32 new
+    tokens each), HAD off as the model has no attention (the JAX
+    launcher's binary=False). Runs: paged (pooled SSM state), dense
+    (per-slot state rows), a 384-page pool with a 1024-page host pool
+    (swap-out preemption: each victim's state entry moves with its
+    pages), the same pool without host space (recompute preemption: the
+    victim restarts from zero state), and 4 requests sharing a 1024-token
+    prefix one at a time, warm (prefix cache: pages and a state checkpoint
+    restored) and cold (the paged engine). Each engine holds 2 graphs and
+    launches no kernel of the port (`_launch_rule`); dense, swap and
+    recompute tokens equal paged's, warm tokens equal cold's, with
+    state_restores > 0; every pool drains. Returns the paged engine, for
+    --profile."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Telemetry
+    cfg = get_config(MAMBA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 7: {cfg.name} {cfg.n_layers} layers {cfg.layer_pattern!r}, "
+        f"d {cfg.d_model}, {cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+        f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, {cfg.param_dtype}, "
+        f"{n_params} parameters, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    lens, prompts, gen, base = _workload(cfg)
+    base = dict(base, binary=False)
+    log(f"phase 7: prompts {lens.tolist()}, {gen} new tokens each")
+    paths = {"paged": dict(paged=True), "dense": dict(paged=False),
+             "paged_swap": dict(paged=True, n_pages=384, swap_pages=1024),
+             "paged_recompute": dict(paged=True, n_pages=384)}
+    runs, kept = {}, None
+    for name, kw in paths.items():
+        eng = _engine(cfg, model, dict(base, **kw), "cuda",
+                      telemetry=Telemetry())
+        moved: list = []
+        _swap_spy(eng, moved)
+        torch.cuda.reset_peak_memory_stats()
+        r = _serve_run(eng, prompts, gen)
+        st = r["stats"]
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        check(r["splits"] == _launch_rule(eng, st) and st["decode_steps"],
+              (name, r["splits"]))
+        check(eng.allocator is None or eng.allocator.in_use == 0,
+              f"{name}: page pool not drained")
+        if eng.statepool is not None:
+            eng.statepool.check()
+            check(eng.statepool.n_held == 0, f"{name}: state pool held")
+        log(f"phase 7 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
+            f"prefill chunks, {st['decode_steps']} decode steps, "
+            f"{eng.runner.graph_count()} step graphs, {st['preemptions']} "
+            f"preemptions, tokens sha1 {r['digest']}; SSM state "
+            f"{'pool' if eng.statepool is not None else 'rows'} "
+            f"{_state_bytes(eng)} bytes, cache bytes "
+            f"{eng.runner.cache_device_bytes()[0]}")
+        log(f"phase 7 [{name}]: {_latency(r)}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if name == "paged_swap":
+            check(st["swap_outs"] > 0, "paged_swap: no swap-out (void)")
+            check(st["replayed_tokens"] == 0
+                  and st["swap_ins"] == st["swap_outs"], st)
+            check(len(moved) == st["swap_outs"]
+                  and all(e >= 0 for e in moved),
+                  ("paged_swap: a victim's state entry did not move", moved))
+            check(eng.swap.in_use == 0, "paged_swap: host pool not drained")
+            log(f"phase 7 [paged_swap]: {st['swap_outs']} swap-outs (state "
+                f"entries {moved}) / {st['swap_ins']} swap-ins, "
+                f"swap_out_bytes {st['swap_out_bytes']}, swap_in_bytes "
+                f"{st['swap_in_bytes']}")
+        if name == "paged_recompute":
+            check(st["replayed_tokens"] > 0, "recompute: nothing replayed")
+            log(f"phase 7 [paged_recompute]: {st['replayed_tokens']} tokens "
+                f"recomputed from zero state")
+        runs[name] = r
+        if name == "paged":
+            kept = eng
+        else:
+            del eng
+            gc.collect()
+    for name in ("dense", "paged_swap", "paged_recompute"):
+        agree = [int(np.sum(a == b)) for a, b in
+                 zip(runs[name]["tokens"], runs["paged"]["tokens"])]
+        check(runs[name]["digest"] == runs["paged"]["digest"],
+              (f"phase 7: {name} tokens differ from the paged run's",
+               agree))
+    log("phase 7: dense, swap and recompute tokens equal the paged run's "
+        "bit for bit")
+
+    # prefix caching: 4 prompts sharing a 1024-token prefix, one at a time
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, cfg.vocab_size, 1024).astype(np.int32)
+    shared_prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)]) for n in (300, 700, 150,
+                                                           1100)]
+    warm_eng = _engine(cfg, model, dict(base, paged=True, prefix_cache=True),
+                       "cuda", telemetry=Telemetry())
+    outs = {}
+    for name, eng in (("cold", kept), ("warm", warm_eng)):
+        eng.reset_stats()
+        outs[name] = [_generate(eng, [p], [None], gen)[0]
+                      for p in shared_prompts]
+        st = dict(eng.stats)
+        check(eng.runner.graph_count() == 2, (name, "graphs"))
+        log(f"phase 7 [prefix {name}]: cached_tokens {st['cached_tokens']}, "
+            f"state_restores {st['state_restores']}, state_ckpt_bytes "
+            f"{st['state_ckpt_bytes']}, prefill_tokens "
+            f"{st['prefill_tokens']}")
+    st = dict(warm_eng.stats)
+    check(st["state_restores"] > 0 and st["cached_tokens"] > 0, st)
+    check(all(np.array_equal(a, b) for a, b in zip(outs["warm"],
+                                                    outs["cold"])),
+          "phase 7: prefix-warm tokens differ from the cold run's")
+    warm_eng.statepool.check()
+    log("phase 7: prefix-warm tokens equal the cold run's bit for bit")
+    del warm_eng
+    return kept
+
+
+# ---------------------------------------------------------------------------
+# phase 8: dbrx-132b at full width
+# ---------------------------------------------------------------------------
+
+DBRX_LAYERS = 8            # of 40: 54.6 GB of bf16 weights on one card
+
+
+def phase8():
+    """dbrx-132b at full width (d 6144, 48 heads over 8 kv heads of 128,
+    16 experts top-4 of d_ff 10752, vocab 100352, bf16) and 8 of its 40
+    layers, seeded weights drawn on the card, served with phase 6's
+    prompts (8 requests of 512-2048 tokens, 16 new tokens each, no
+    images): paged (K1 + K2), dense (K1 + K4), page_topn 255 (K3 + K2)
+    and full-precision paged. Each engine holds 2 graphs and follows
+    `_launch_rule` (counts zeroed just before a run, read just after);
+    dense and page_topn-255 tokens equal paged's bit for bit; every pool
+    drains. Returns the launch totals by phase-2 dbrx record, and the
+    paged engine, for --profile."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Telemetry
+    cfg = get_config(DBRX, n_layers=DBRX_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 8: {cfg.name} {cfg.n_layers} of 40 layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+        f"top-{cfg.experts_per_token} of d_ff {cfg.d_ff}, "
+        f"{cfg.param_dtype}, {n_params} parameters ({n_params / 1e9:.2f} B, "
+        f"{n_params * 2 / 1e9:.2f} GB), drawn on the card in {draw_s:.2f} s")
+    lens, prompts, _, gen, base = _vision_workload(cfg)
+    log(f"phase 8: prompts {lens.tolist()}, {gen} new tokens each")
+    paths = {"paged": dict(paged=True), "dense": dict(paged=False),
+             "page_topn_255": dict(paged=True, page_topn=255),
+             "fp_paged": dict(paged=True, binary=False)}
+    runs, kept = {}, None
+    totals = dict.fromkeys((K1_DBRX, K2_DBRX, K3_DBRX, K4_DBRX), 0)
+    for name, kw in paths.items():
+        eng = _engine(cfg, model, dict(base, **kw), "cuda",
+                      telemetry=Telemetry())
+        torch.cuda.reset_peak_memory_stats()
+        r = _serve_run(eng, prompts, gen)
+        st = r["stats"]
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        want = _launch_rule(eng, st)
+        check(r["splits"] == want and st["decode_steps"] > 0,
+              (name, r["splits"], want))
+        check(eng.allocator is None or eng.allocator.in_use == 0,
+              f"{name}: page pool not drained")
+        log(f"phase 8 [{name}]: {r['steps']} steps, {st['prefill_chunks']} "
+            f"prefill chunks, {st['decode_steps']} decode steps, "
+            f"{eng.runner.graph_count()} step graphs, launches "
+            f"{r['counts']}, tokens sha1 {r['digest']}; cache bytes "
+            f"{eng.runner.cache_device_bytes()[0]}, decode KV bytes "
+            f"{st['decode_hbm_bytes']}")
+        log(f"phase 8 [{name}]: {_latency(r)}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        got = r["splits"]
+        totals[K1_DBRX] += got[pre.NAME]
+        totals[K2_DBRX] += got[pdec.NAME]
+        totals[K3_DBRX] += got[pscore.NAME]
+        totals[K4_DBRX] += got[dec.NAME]
+        runs[name] = r
+        if name == "paged":
+            kept = eng
+        else:
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name in ("dense", "page_topn_255"):
+        check(runs[name]["digest"] == runs["paged"]["digest"] and all(
+            np.array_equal(a, b) for a, b in
+            zip(runs[name]["tokens"], runs["paged"]["tokens"])),
+            f"phase 8: {name} tokens differ from the paged run's")
+    log("phase 8: dense and page_topn 255 tokens equal the paged run's bit "
+        "for bit")
+    return totals, kept
+
+
+def profile_decode(eng, name: str, out_dir: str, prompt_len: int) -> None:
+    """Device time by group in a decode window of a full-size engine: 4
+    slots filled with `prompt_len`-token prompts, then 8 decode steps run
+    once on the host clock and once under torch.profiler. Groups: the
+    attention kernels, GEMMs (the projections, the expert matmuls, the
+    head), index ops (the MoE dispatch and combine, the state pool's
+    gathers and scatters), memcpy/memset and the rest (elementwise and
+    reductions: the SSM's conv, exp, cumsum and einsum glue, the router's
+    softmax and sort)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(9)
+    while eng.queue or any(s.request is not None for s in eng.slots):
+        eng.step()
+    for _ in range(4):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, prompt_len).astype(
+            np.int32), max_new_tokens=64)
+    while eng.queue or any(s.prefilling for s in eng.slots):
+        eng.step()
+    eng.step()
+    n = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("K1 prefill_*_kernel" if "prefill_" in e.key else
+               "K2/K4 split_*_kernel" if "split_" in e.key else
+               "K3 page_select_kernel" if "page_select" in e.key else
+               "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key
+               else "gemm" if any(t in e.key for t in
+                                  ("gemm", "nvjet", "cutlass", "sm90"))
+               else "index (dispatch/combine, state gather/scatter)"
+               if any(t in e.key.lower() for t in
+                      ("index", "gather", "scatter"))
+               else "other elementwise/reduce")
+        groups[key] = groups.get(key, 0.0) + dev(e)
+    busy = sum(groups.values())
+    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=80))
+    log(f"profile {name}: {n} steps, host wall {wall / n:.3f} ms a step, "
+        f"device {busy / n:.3f} ms a step, busy {busy / wall:.3f}; per "
+        f"step: " + "; ".join(f"{k} {v / n:.3f} ms" for k, v in
+                              sorted(groups.items(), key=lambda kv: -kv[1])))
 
 
 def profile_vision(eng, out_dir: str) -> None:
@@ -2116,11 +2502,20 @@ def profile_windows(engines: dict, out_dir: str) -> None:
         window(f"decode_4x3k_{name}_{i}", eng, 8, lambda: None, "K2")
 
 
+def _free() -> None:
+    """Return the memory of dropped engines and models to the card."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="after phase 4, profile a prefill and a decode "
-                         "window of the full-size engine into DIR")
+                    help="profile prefill and decode windows of the "
+                         "full-size engines of phases 4-8 into DIR")
     args = ap.parse_args()
     try:
         import torch
@@ -2145,13 +2540,30 @@ def main() -> int:
         records = phase2()
         phase3()
         phase3_vision()
+        phase3_jamba()
         counts, engines, runs = phase4()
         phase5(engines, runs)
-        vision_counts, vision_engine = phase6()
-        counts.update(vision_counts)
         if args.profile:
             profile_windows(engines, args.profile)
-            profile_vision(vision_engine, args.profile)
+        del engines, runs
+        vision_counts, engine = phase6()
+        counts.update(vision_counts)
+        if args.profile:
+            profile_vision(engine, args.profile)
+        del engine                      # phase 8's weights need the room
+        _free()
+        engine = phase7()
+        if args.profile:
+            profile_decode(engine, "mamba2_decode_4x3k_paged", args.profile,
+                           3072)
+        del engine
+        _free()
+        dbrx_counts, engine = phase8()
+        counts.update(dbrx_counts)
+        if args.profile:
+            profile_decode(engine, "dbrx_decode_4x2k_paged", args.profile,
+                           2048)
+        del engine
     except Exception:
         traceback.print_exc()
         return 1

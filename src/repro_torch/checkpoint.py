@@ -4,8 +4,10 @@ The JAX package keeps per-layer parameters stacked along a leading
 ``n_groups`` axis under ``params["blocks"]["pos<i>"]`` (its serve step
 scans over it). Layer ``g * len(layer_pattern) + i`` of the port is group
 ``g`` of pattern position ``i``; self- and cross-attention layers carry
-the same weight names, and a model with cross layers carries
-``frontend_proj`` too. Two sources:
+the same weight names, SSM layers their own (``w_in``, ``w_out``,
+``A_log``, ``D``, ``dt_bias``, ``conv_w``, ``norm``), MoE FFNs a float32
+``router`` and expert weights stacked over experts, and a model with
+cross layers carries ``frontend_proj`` too. Two sources:
 
 * `params_from_numpy` takes the tree as numpy arrays, e.g.
   ``jax.tree.map(np.asarray, params)`` -- no jax needed here.
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import SSM
 from repro_torch.models.transformer import Transformer
 
 SEP = "//"
@@ -76,13 +79,22 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu"
             src = tree["blocks"][f"pos{i}"]
             where = f"blocks/pos{i}[{g}]"
             put(blk.norm1.w, src["norm1"]["w"][g], f"{where}/norm1")
-            for name in ("wq", "wk", "wv", "wo", "sigma_q", "sigma_k"):
-                put(getattr(blk.mixer, name), src["mixer"][name][g],
+            mixer = src["mixer"]
+            if isinstance(blk.mixer, SSM):
+                put(blk.mixer.norm, mixer["norm"]["w"][g],
+                    f"{where}/mixer/norm")
+                names = ("w_in", "w_out", "A_log", "D", "dt_bias", "conv_w")
+            else:
+                names = ("wq", "wk", "wv", "wo", "sigma_q", "sigma_k")
+            for name in names:
+                put(getattr(blk.mixer, name), mixer[name][g],
                     f"{where}/mixer/{name}")
             if cfg.d_ff > 0:
                 put(blk.norm2.w, src["norm2"]["w"][g], f"{where}/norm2")
-                for name in ("w1", "w2", "w3"):
-                    w = getattr(blk.ffn, name)
+                # an MoE FFN adds its router; its w1 / w2 / w3 are
+                # stacked over experts ([E, D, F], [E, F, D])
+                for name in ("router", "w1", "w2", "w3"):
+                    w = getattr(blk.ffn, name, None)
                     if w is not None:
                         put(w, src["ffn"][name][g], f"{where}/ffn/{name}")
     model.refresh_scales()

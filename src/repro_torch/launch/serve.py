@@ -22,7 +22,16 @@ for a later slice (ROADMAP.md queue 1).
 A model with cross-attention layers (--arch llama-3.2-vision-11b) is
 served text-only, as the JAX launcher serves it: it has no image flag, so
 every request's cross layers attend a zero image cache. Images ride in
-`Engine.submit(..., extra={"image_embeds": ...})`.
+`Engine.submit(..., extra={"image_embeds": ...})`. SSM and MoE models
+(--arch mamba2-130m, jamba-1.5-large-398b --reduced, dbrx-132b) take the
+same flags; as in the JAX launcher, a model without attention layers, or
+with HAD disabled (mamba2-130m), serves without the binary path, and an
+encoder arch exits with a message.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --reduced --device cpu --paged --prompt-len 24 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --reduced --device cpu --prompt-len 24
 """
 from __future__ import annotations
 
@@ -122,6 +131,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.is_encoder:
+        raise SystemExit(f"{cfg.name} is encoder-only — no decode loop")
+    binary = not args.baseline and cfg.had.enabled and cfg.has_attention
     model = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device=device)
     n_req = args.requests or 2 * args.slots
@@ -137,7 +149,7 @@ def main(argv=None):
                  else None)
     eng = Engine(cfg, model, ServeConfig(
         max_len=max_len, batch_slots=args.slots,
-        prefill_chunk=args.prefill_chunk, binary=not args.baseline,
+        prefill_chunk=args.prefill_chunk, binary=binary,
         paged=paged,
         page_size=args.page_size, n_pages=args.n_pages or None,
         policy=args.policy, prefix_cache=args.prefix_cache,
@@ -194,7 +206,7 @@ def main(argv=None):
     print(f"wall {dt:.2f}s  decode_steps={eng.stats['decode_steps']} "
           f"prefill_chunks={eng.stats['prefill_chunks']} "
           f"({gen_tok / dt:.1f} generated tok/s)")
-    print(f"attention: {'full precision' if args.baseline else 'HAD'}, "
+    print(f"attention: {'HAD' if binary else 'full precision'}, "
           f"step graphs: {eng.runner.graph_count()}")
     if args.async_mode:
         ov = eng.overlap_stats()

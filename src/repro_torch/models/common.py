@@ -12,14 +12,17 @@ import torch
 # ---------------------------------------------------------------------------
 
 
-def dense_init(shape, dtype, *, generator: torch.Generator) -> torch.Tensor:
-    """Truncated-normal (+-2 sigma) init at fan-in std, drawn on the
-    generator's device."""
+def dense_init(shape, dtype, *, generator: torch.Generator,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal (+-2 sigma) init at std `scale`, by default the
+    fan-in std (shape[0] of a 2-d or stacked weight, as in the JAX
+    package), drawn on the generator's device."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
     x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
-    return (fan_in ** -0.5 * x).to(dtype)
+    return (std * x).to(dtype)
 
 
 def embed_init(shape, dtype, *, generator: torch.Generator) -> torch.Tensor:

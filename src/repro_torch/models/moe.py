@@ -1,0 +1,114 @@
+"""Mixture-of-Experts FFN for serving (torch twin of ``repro.models.moe``'s
+``moe_ffn(no_drop=True)``, the form the JAX serve step calls).
+
+Tokens are cut into groups of `tg` (at most 512; the group size shrinks
+until it divides the token count, so groups may span batch rows), routed
+top-k by a float32 softmax router (ties to the lowest expert, as
+``lax.top_k``), their k gates renormalised, and placed in per-expert
+capacity buffers, k-slot 0 of every token claiming its place before slot
+1, and so on (GShard order); a token past an expert's capacity is dropped
+from that expert. The JAX package builds one-hot dispatch and combine
+tensors and contracts them; here each kept (token, slot) is copied into
+its place of one static [E, G * cap, D] buffer (every shape fixed by the
+step's, as CUDA graphs need), every expert runs one batched matmul over
+its G * cap rows, and each token sums its k outputs weighted by its gates
+rounded to the model dtype. The results equal the contraction's: every
+buffer row holds one token or zeros, and only kept rows are read back.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+GROUP_SIZE = 512
+
+
+class MoE(nn.Module):
+    """One MoE FFN's weights, named as the JAX tree's: a float32 router
+    [D, E] and stacked expert weights w1 [E, D, F], w2 [E, F, D] and, for
+    SwiGLU, w3 [E, D, F]."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
+
+        def weight(*shape, dtype=dt):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype,
+                                            device=device),
+                                requires_grad=False)
+
+        self.router = weight(d, e, dtype=torch.float32)
+        self.w1 = weight(e, d, f)
+        self.w2 = weight(e, f, d)
+        self.w3 = weight(e, d, f) if cfg.act == "swiglu" else None
+
+
+def group_shape(tokens: int, cfg: ModelConfig) -> tuple[int, int, int]:
+    """(groups G, tokens a group tg, capacity a group and expert cap) of
+    serving's no-drop dispatch: 4x each expert's expected load, at least
+    16, at most tg."""
+    tg = min(GROUP_SIZE, tokens)
+    while tokens % tg:
+        tg -= 1
+    expected = tg * cfg.experts_per_token / cfg.n_experts
+    return tokens // tg, tg, min(tg, max(int(4 * expected) + 1, 16))
+
+
+def route(p: MoE, xg: torch.Tensor, cfg: ModelConfig):
+    """Top-k routing of grouped tokens xg [G, Tg, D]: (gates [G, Tg, k]
+    float32, renormalised; experts [G, Tg, k] int64), each token's experts
+    in descending probability, ties to the lowest expert (a stable sort;
+    torch.topk does not promise the order of ties)."""
+    k = cfg.experts_per_token
+    probs = torch.softmax(xg.to(torch.float32) @ p.router, dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[..., :k], experts[..., :k]
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), experts
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
+    """x [B, S, D] -> y [B, S, D]."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    g, tg, cap = group_shape(b * s, cfg)
+    xg = x.reshape(g, tg, d)
+    gates, experts = route(p, xg, cfg)
+    dev = x.device
+    # each kept (token, slot) gets row experts * (G * cap) + g * cap + pos
+    # of the [E * G * cap] expert buffer; dropped ones point at its extra
+    # trash row, which no expert reads
+    rows, keeps = [], []
+    fill = torch.zeros((g, e), dtype=torch.int64, device=dev)
+    one_hot_of = torch.arange(e, device=dev)
+    base = torch.arange(g, device=dev)[:, None] * cap              # [G, 1]
+    for slot in range(k):
+        idx = experts[..., slot]                                    # [G, Tg]
+        oh = (idx[..., None] == one_hot_of).to(torch.int64)         # [G,Tg,E]
+        pos_in_e = fill[:, None, :] + torch.cumsum(oh, dim=1) - oh
+        pos = pos_in_e.gather(2, idx[..., None])[..., 0]
+        keep = pos < cap
+        rows.append(torch.where(keep, idx * (g * cap) + base + pos,
+                                e * g * cap))
+        keeps.append(keep)
+        fill = fill + oh.sum(1)
+    buf = torch.zeros((e * g * cap + 1, d), dtype=x.dtype, device=dev)
+    flat = xg.reshape(g * tg, d)
+    for r in rows:
+        buf.index_copy_(0, r.reshape(-1), flat)
+    ein = buf[:-1].view(e, g * cap, d)
+    h = torch.bmm(ein, p.w1)                                   # [E, G*cap, F]
+    if cfg.act == "swiglu":
+        h = F.silu(h) * torch.bmm(ein, p.w3)
+    else:
+        h = F.gelu(h, approximate="tanh")
+    out = torch.bmm(h, p.w2).view(e * g * cap, d)
+    y = torch.zeros((g, tg, d), dtype=torch.float32, device=dev)
+    for slot, (r, keep) in enumerate(zip(rows, keeps)):
+        got = out.index_select(0, r.reshape(-1).clamp_max(e * g * cap - 1))
+        w = gates[..., slot].to(x.dtype).to(torch.float32)[..., None]
+        y = y + torch.where(keep[..., None], w * got.view(g, tg, d).to(
+            torch.float32), torch.zeros((), device=dev))
+    return y.to(x.dtype).reshape(b, s, d)

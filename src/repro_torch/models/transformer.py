@@ -7,13 +7,17 @@ package's leading ``n_groups`` axis unstacked into a list of layers; the
 JAX ``lax.scan`` over groups is a Python loop here. Layer
 ``g * len(layer_pattern) + i`` is group g of pattern position i.
 
-This slice serves decoders whose layer pattern holds self-attention ("A")
-and cross-attention ("C") layers (smollm-135m, llama-3.2-vision-11b), on
+A layer's mixer is picked by its pattern character: self-attention ("A"),
+cross-attention ("C") or a Mamba2 SSM ("M", models/ssm.py); its FFN is an
+MoE (models/moe.py) at the pattern positions `layer_uses_moe` names,
+else a dense MLP. So the port serves decoders (smollm-135m,
+llama-3.2-vision-11b, mamba2-130m, jamba-1.5-large-398b, dbrx-132b), on
 the binary path or the full-precision baseline, over the paged or the
 dense cache. Cross layers attend the image K/V of a static cache, filled
 from per-request image embeddings (``frontend_proj``, then each layer's
-wk/wv): dense per-slot rows, or entries of a state pool addressed by
-``state_tables`` when the engine pools state. Other families raise.
+wk/wv); SSM layers carry {h, conv} state. Both kinds of state are dense
+per-slot rows, or entries of a state pool addressed by ``state_tables``
+when the engine pools state. Encoders and frames frontends raise.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention_block as AB
-from repro_torch.models import common
+from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 
@@ -29,26 +33,26 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for model families this slice lacks,
     naming their ROADMAP.md items (queue 1, 'Still to port')."""
     todo = "is not ported yet: see ROADMAP.md queue 1, 'Still to port'"
-    if "M" in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: layer pattern {cfg.layer_pattern!r} with SSM "
-            f"('M') layers {todo}, item 1 (SSM layers)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: an MoE FFN {todo}, item 2 (MoE)")
     if not cfg.causal or cfg.pos != "rope":
         raise NotImplementedError(
-            f"{cfg.name}: an encoder or learned positions {todo}, item 5 "
+            f"{cfg.name}: an encoder or learned positions {todo}, item 3 "
             f"(training, distillation and the encoder archs)")
     if cfg.frontend_dim and "C" not in cfg.layer_pattern:
         raise NotImplementedError(
-            f"{cfg.name}: a frames frontend {todo}, item 3 (frames "
+            f"{cfg.name}: a frames frontend {todo}, item 1 (frames "
             f"frontends)")
 
 
 def layer_kinds(cfg: ModelConfig) -> str:
     """The pattern character of every layer, in layer order."""
     return cfg.layer_pattern * cfg.n_groups
+
+
+def layer_uses_moe(cfg: ModelConfig, layer: int) -> bool:
+    """Layer `layer` has an MoE FFN: JAX's `_position_uses_moe` rule on
+    its pattern position."""
+    pos = layer % cfg.group_size
+    return cfg.n_experts > 0 and pos % cfg.moe_every == cfg.moe_every - 1
 
 
 class RMSNorm(nn.Module):
@@ -73,13 +77,16 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, use_moe: bool,
+                 device=None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mixer = AB.Attention(cfg, device=device)
+        self.mixer = (ssm.SSM(cfg, device) if kind == "M"
+                      else AB.Attention(cfg, device=device))
         if cfg.d_ff > 0:
             self.norm2 = RMSNorm(cfg.d_model, cfg.dtype, device)
-            self.ffn = MLP(cfg, device)
+            self.ffn = (moe.MoE(cfg, device) if use_moe
+                        else MLP(cfg, device))
 
 
 class Transformer(nn.Module):
@@ -97,29 +104,35 @@ class Transformer(nn.Module):
         self.frontend_proj = (nn.Parameter(torch.zeros(
             (cfg.frontend_dim, d), dtype=dt, device=device),
             requires_grad=False) if cfg.frontend_dim else None)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, layer_uses_moe(cfg, i), device)
+            for i, kind in enumerate(layer_kinds(cfg)))
 
     def refresh_scales(self) -> None:
-        """Recompute every layer's logit scale after sigmas were loaded."""
+        """Recompute every attention layer's logit scale after sigmas were
+        loaded."""
         for blk in self.blocks:
-            blk.mixer.refresh_scale()
+            if isinstance(blk.mixer, AB.Attention):
+                blk.mixer.refresh_scale()
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cpu") -> Transformer:
     """Seeded random weights: truncated normal at fan-in std for dense
-    weights, normal * 0.02 for the embedding, ones for norms (the JAX
-    init's distributions; jax.random's numbers differ). Drawn on the
+    weights (stacked expert weights [E, ...] take E as their fan-in, as
+    in the JAX package), normal * 0.02 for the embedding, ones for norms;
+    SSM layers: A_log 0, D 1, dt_bias 0, conv_w at std 0.5; MoE routers
+    float32 at std 0.02 (the JAX init's distributions; jax.random's
+    numbers differ). Drawn on the
     generator's device (a CPU generator by default; a CUDA generator draws
     a full-size model on the card, without the host copy), then moved to
     `device`. The numbers depend on the generator's device."""
     model = Transformer(cfg, device=generator.device)
     dt = cfg.dtype
 
-    def dense(param):
-        param.copy_(common.dense_init(tuple(param.shape), dt,
-                                      generator=generator))
+    def dense(param, scale=None):
+        param.copy_(common.dense_init(tuple(param.shape), param.dtype,
+                                      generator=generator, scale=scale))
 
     with torch.no_grad():
         model.embed.copy_(common.embed_init(tuple(model.embed.shape), dt,
@@ -129,9 +142,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         if model.frontend_proj is not None:
             dense(model.frontend_proj)
         for blk in model.blocks:
-            for name in ("wq", "wk", "wv", "wo"):
-                dense(getattr(blk.mixer, name))
+            if isinstance(blk.mixer, ssm.SSM):
+                dense(blk.mixer.w_in)
+                dense(blk.mixer.w_out)
+                dense(blk.mixer.conv_w, scale=0.5)
+                blk.mixer.D.fill_(1.0)
+                blk.mixer.norm.fill_(1.0)
+            else:
+                for name in ("wq", "wk", "wv", "wo"):
+                    dense(getattr(blk.mixer, name))
             if cfg.d_ff > 0:
+                if isinstance(blk.ffn, moe.MoE):
+                    dense(blk.ffn.router, scale=0.02)
                 for name in ("w1", "w2", "w3"):
                     w = getattr(blk.ffn, name)
                     if w is not None:
@@ -146,16 +168,19 @@ def init_caches(cfg: ModelConfig, *, paged: bool, batch: int = 0,
     """One cache dict per layer. Self-attention layers: page pools when
     `paged` (see attention_block.init_paged_cache; n_pages, page_size),
     else dense per-slot caches (attention_block.init_cache; batch,
-    max_len). Cross layers (attention_block.init_cross_cache): dense
-    [batch, ...] per-slot caches, or, with `state_pages`, a pool of
-    state_pages entries plus one trash entry, addressed by serve_step's
-    `state_tables`. Packed K bits when `binary`, else full-precision K."""
+    max_len). Cross layers (attention_block.init_cross_cache) and SSM
+    layers (ssm.init_state: float32 h, conv inputs): dense [batch, ...]
+    per-slot state, or, with `state_pages`, a pool of state_pages entries
+    plus one trash entry, addressed by serve_step's `state_tables`. Packed
+    K bits when `binary`, else full-precision K."""
     out = []
+    state_rows = batch if state_pages is None else state_pages + 1
     for kind in layer_kinds(cfg):
         if kind == "C":
-            out.append(AB.init_cross_cache(
-                cfg, batch if state_pages is None else state_pages + 1,
-                binary=binary, device=device))
+            out.append(AB.init_cross_cache(cfg, state_rows, binary=binary,
+                                           device=device))
+        elif kind == "M":
+            out.append(ssm.init_state(cfg, state_rows, device=device))
         elif paged:
             out.append(AB.init_paged_cache(cfg, n_pages, page_size,
                                            binary=binary, device=device))
@@ -215,6 +240,39 @@ def _cross_view(cache: dict, st: torch.Tensor | None,
     return view
 
 
+def _ssm_serve(blk: Block, h: torch.Tensor, cache: dict, *,
+               cfg: ModelConfig, st: torch.Tensor | None,
+               st_ok: torch.Tensor | None, active: torch.Tensor | None,
+               n_valid: torch.Tensor | None,
+               fresh: torch.Tensor | None) -> torch.Tensor:
+    """An SSM layer's step (JAX serve_step's "M" branch): read the rows'
+    state (dense rows, or pool entries through `st`), zero the `fresh`
+    rows' view, run the chunk (`ssm_forward`) or the decode step
+    (`ssm_decode`), and write the new state back in place: pool entries
+    of the `st_ok` rows, or the dense rows that are `active`."""
+    view = cache if st is None else ssm.state_read(cache, st)
+    if fresh is not None:
+        view = {name: leaf.masked_fill(
+            fresh.reshape((-1,) + (1,) * (leaf.ndim - 1)), 0)
+            for name, leaf in view.items()}
+    if h.shape[1] == 1:
+        mix, new = ssm.ssm_decode(blk.mixer, h, cfg=cfg, state=view)
+    else:
+        mix, new = ssm.ssm_forward(blk.mixer, h, cfg=cfg, state=view,
+                                   n_valid=n_valid)
+    if st is not None:
+        ssm.state_write(cache, new, st, st_ok)
+    else:
+        for name, leaf in cache.items():
+            val = new[name].to(leaf.dtype)
+            if active is not None:
+                val = torch.where(
+                    active.reshape((-1,) + (1,) * (leaf.ndim - 1)), val,
+                    leaf)
+            leaf.copy_(val)
+    return mix
+
+
 @torch.no_grad()
 def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                *, pos: torch.Tensor, n: int,
@@ -238,18 +296,19 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     binary: the HAD path over packed K bits, or (False) the full-precision
     baseline over caches made with init_caches(binary=False).
 
-    Cross layers (JAX ``serve_step``'s "C" positions): state_tables [B]
-    int entry ids when their caches are pooled (-1: no entry; reads see
-    entry 0, writes are dropped), else they are dense per-slot caches.
-    image_embeds [B, T_img, frontend_dim] fills the cross caches of the
-    active rows (pooled: of active rows with an entry) before the layers
-    run, as the JAX step does when its batch carries them. Without them,
-    a row that starts a request in this chunk (active, pos 0, n_valid
-    given) attends a zero cross cache, never the previous occupant's
-    image: its dense row or pool entry is zeroed. `zero_fresh=False`
-    skips that zero, for a caller that writes those rows itself before
-    the step (the serving runner, outside its captured graphs). A decode
-    step never writes a cross cache.
+    Cross and SSM layers (JAX ``serve_step``'s "C" and "M" positions):
+    state_tables [B] int entry ids when their state is pooled (-1: no
+    entry; reads see entry 0, writes are dropped), else it is dense
+    per-slot state. image_embeds [B, T_img, frontend_dim] fills the cross
+    caches of the active rows (pooled: of active rows with an entry)
+    before the layers run, as the JAX step does when its batch carries
+    them. A row that starts a request in this chunk (active, pos 0,
+    n_valid given) never sees the previous occupant's state: its SSM state
+    reads zeros, and without images its cross cache is zeroed (the dense
+    row or pool entry, in place). `zero_fresh=False` skips both zeros, for
+    a caller that zeroes those rows itself before the step (the serving
+    runner, outside its captured graphs). A decode step never writes a
+    cross cache.
 
     logits_mode="last" returns each row's logits at its last valid
     position only. Returns float32 logits [B, S or 1, padded_vocab].
@@ -270,14 +329,18 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
         else:
             fill_cross_caches(model, caches, image_embeds, st, st_ok,
                               pooled=True, binary=binary)
-    zero = None        # every active row is filled when images ride along
-    if (zero_fresh and image_embeds is None and n_valid is not None
-            and active is not None):
-        zero = active & (pos == 0)
+    fresh = None
+    if zero_fresh and n_valid is not None and active is not None:
+        fresh = active & (pos == 0)
+    # every active cross row is filled when images ride along
+    zero = fresh if image_embeds is None else None
     x = model.embed[tokens.to(torch.int64)]                # [B, S, D]
     for kind, blk, cache in zip(layer_kinds(cfg), model.blocks, caches):
         h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
-        if kind == "C":
+        if kind == "M":
+            x = x + _ssm_serve(blk, h, cache, cfg=cfg, st=st, st_ok=st_ok,
+                               active=active, n_valid=n_valid, fresh=fresh)
+        elif kind == "C":
             view = _cross_view(cache, st, st_ok, zero)
             x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=view,
                                   pos=pos, n=n, binary=binary, cross=True)
@@ -288,8 +351,11 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                                   page_topn=page_topn, binary=binary)
         if cfg.d_ff > 0:
             h2 = common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps)
-            x = x + common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,
-                               act=cfg.act)
+            if isinstance(blk.ffn, moe.MoE):
+                x = x + moe.moe_ffn(blk.ffn, h2, cfg=cfg)
+            else:
+                x = x + common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,
+                                   act=cfg.act)
     if logits_mode == "last":
         if n_valid is None:
             x = x[:, -1:]

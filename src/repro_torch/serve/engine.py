@@ -17,12 +17,13 @@ The port serves the binary path and the full-precision baseline
 swap-out preemption, `swap_pages`, `prefix_cache` and page-sparse decode,
 `page_topn`) or the dense cache (`paged=False`), stepped synchronously,
 pipelined, or from asyncio (`serve/async_engine.py`), for decoders with
-self- and cross-attention layers: a request's image embeddings ride in
+self-attention, cross-attention and SSM (Mamba2) layers and dense or MoE
+FFNs: a request's image embeddings ride in
 `submit(..., extra={"image_embeds": [1, T_img, frontend_dim]})`, and a
-paged engine keeps the cross caches in a pooled state allocation
-(`statepool`). Tensor-parallel serving and SSM, MoE and frames-frontend
-models raise NotImplementedError when the engine builds its runner; see
-ROADMAP.md.
+paged engine keeps the cross caches and the SSM state in a pooled state
+allocation (`statepool`). Tensor-parallel serving, encoders and
+frames-frontend models raise NotImplementedError when the engine builds
+its runner; see ROADMAP.md.
 The engine runs on the card unless the caller asks for the CPU, each step
 as a CUDA graph replay unless it asks for the eager step (`eager=True`).
 
@@ -121,7 +122,7 @@ class Engine:
     @property
     def statepool(self) -> StatePool | None:
         """The pooled state entries' accounting (a paged engine of a model
-        with cross layers), else None."""
+        with SSM or cross layers), else None."""
         return self.scheduler.statepool
 
     @property

@@ -11,20 +11,22 @@ Execution order within one plan (as in the JAX runner; the order that
 makes page recycling safe):
 
   1. swap-in scatters: restore swapped requests' page contents (and, for
-     models with cross layers, their pooled state entry) into their
-     freshly allocated device pages and entry, in place;
+     models with SSM or cross layers, their pooled state entry) into
+     their freshly allocated device pages and entry, in place;
   2. swap-out gathers: copy each victim's pages and state entry on the
      device, before any planned write can recycle them, and start their
      copy to pinned host memory;
   3. admission state restores: copy a prefix-matched checkpoint entry
      into the admission's live state entry;
   4. prefill chunks, in plan order: just before a request's first
-     chunk's replay, its image embeddings fill its cross caches (dense
-     row or state entry) in place, or, without an image, they are zeroed
-     (a refilled slot never inherits the previous occupant's image); each
-     completed prompt's first token is sampled from the chunk's
-     last-valid logits; a chunk with a planned `state_ckpt` is followed
-     by a live-entry -> checkpoint-entry copy;
+     chunk's replay (a fresh or recompute admission: the chunk at
+     position 0), its SSM state (dense row or state entry) is zeroed in
+     place, and its image embeddings fill its cross caches, or, without
+     an image, they are zeroed too (a refilled slot never inherits the
+     previous occupant's state or image); each completed prompt's first
+     token is sampled from the chunk's last-valid logits; a chunk with a
+     planned `state_ckpt` is followed by a live-entry -> checkpoint-entry
+     copy;
   5. one batched ragged decode over the plan's decode set (minus slots
      whose just-sampled first token hit eos).
 
@@ -66,7 +68,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import pages_needed
 from repro_torch.serve.scheduler import SamplingParams, SchedulePlan, ServeConfig
 from repro_torch.serve.telemetry import SERVE_COUNTERS, MetricsRegistry
-from repro_torch.serve.validate import (resolve_state_pages,
+from repro_torch.serve.validate import (STATE_LAYER_CHARS,
+                                        resolve_state_pages,
                                         validate_serve_features)
 
 
@@ -88,7 +91,7 @@ def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     if scfg.mesh is not None:
         raise NotImplementedError(
             "repro_torch does not serve tensor-parallel serving (mesh) yet: "
-            "see ROADMAP.md queue 1, 'Still to port', item 4")
+            "see ROADMAP.md queue 1, 'Still to port', item 2")
 
 
 def _chunk_extra(extra: dict | None, s: int, lo: int, hi: int,
@@ -232,12 +235,16 @@ class ModelRunner:
         self.n_pages = 0
         kinds = T.layer_kinds(cfg)
         # layers whose caches are page pools (swapped page by page), and
-        # cross layers, whose caches are a pooled state allocation in a
-        # paged engine (JAX `_state_positions`; swapped entry by entry)
+        # the SSM and cross layers, whose per-slot state is a pooled state
+        # allocation in a paged engine (JAX `_state_positions`; swapped,
+        # checkpointed and restored entry by entry)
         self._pool_layers = ([i for i, k in enumerate(kinds) if k == "A"]
                              if scfg.paged else [])
         self._cross_layers = [i for i, k in enumerate(kinds) if k == "C"]
-        self._state_layers = self._cross_layers if scfg.paged else []
+        self._ssm_layers = [i for i, k in enumerate(kinds) if k == "M"]
+        self._state_layers = ([i for i, k in enumerate(kinds)
+                               if k in STATE_LAYER_CHARS]
+                              if scfg.paged else [])
         self.n_state_pages = (resolve_state_pages(scfg)
                               if self._state_layers else 0)
         if scfg.paged:
@@ -287,10 +294,11 @@ class ModelRunner:
     def cache_device_bytes(self) -> tuple[int, int]:
         """(total, per_device) bytes of every layer's cache; equal, on one
         device. Unlike the JAX runner's count, which holds the
-        self-attention caches only, it counts the cross caches (dense, or
-        the state pool) too. The port's pools and dense caches each hold
-        one trash page, position or entry per leaf beyond the JAX
-        package's, where dropped writes land, and they are counted."""
+        self-attention caches only, it counts the cross caches and the SSM
+        state (dense, or the state pool) too. The port's pools and dense
+        caches each hold one trash page, position or entry per leaf beyond
+        the JAX package's, where dropped writes land, and they are
+        counted."""
         total = sum(leaf.numel() * leaf.element_size()
                     for cache in self.caches for leaf in cache.values())
         return total, total
@@ -389,35 +397,40 @@ class ModelRunner:
                             if state_tables is None else state_tables)
         return out
 
-    def _write_cross(self, emb, rows: np.ndarray, pos, active,
+    def _write_state(self, emb, rows: np.ndarray, pos, active,
                      state: np.ndarray | None) -> None:
-        """Write the cross caches a prefill chunk reads, in place and
-        outside the step graph (the graph never writes them): the active
-        slots among `rows` take their image embeddings (`emb`
-        [len(rows), T_img, frontend_dim], or None), and every other active
-        slot that starts a request in this chunk (pos 0) is zeroed, so a
-        refilled slot never reads the previous occupant's image. A slot's
-        cross cache is its dense row, or its entry in `state` (slots with
+        """Write the per-slot state a prefill chunk reads, in place and
+        outside the step graph (the graph zeroes none of it): every active
+        slot that starts a request in this chunk (pos 0) has its SSM state
+        zeroed, and its cross caches too, unless it is among `rows` with
+        image embeddings (`emb` [len(rows), T_img, frontend_dim], or
+        None), which fill them. So a refilled slot never reads the
+        previous occupant's state or image (JAX zeroes a fresh
+        admission's entry, and a fresh dense row inside its step). A
+        slot's state is its dense row, or its entry in `state` (slots with
         entry -1 are skipped)."""
         live = np.asarray(active, bool)
         fresh = live & (np.asarray(pos) == 0)
         dev = self.device
-        if emb is not None:
+        filled = np.zeros_like(fresh)
+        if emb is not None and self._cross_layers:
             keep = live[rows]
             rows, emb = rows[keep], np.asarray(emb)[keep]
-            fresh[rows] = False
+            filled[rows] = True
             idx = rows if state is None else np.asarray(state)[rows]
             T.fill_cross_caches(
                 self.model, self.caches, torch.from_numpy(emb).to(dev),
                 torch.from_numpy(idx.astype(np.int64)).to(dev),
                 torch.from_numpy(idx >= 0).to(dev),
                 pooled=state is not None, binary=self.scfg.binary)
-        zero = np.flatnonzero(fresh)
-        if state is not None:
-            zero = np.asarray(state)[zero]
-            zero = zero[zero >= 0]
-        if zero.size:
-            self._state_zero(zero)
+        for zero, layers in ((fresh, self._ssm_layers),
+                             (fresh & ~filled, self._cross_layers)):
+            zero = np.flatnonzero(zero)
+            if state is not None:
+                zero = np.asarray(state)[zero]
+                zero = zero[zero >= 0]
+            if zero.size and layers:
+                self._state_zero(zero, layers)
 
     def prefill_step(self, tokens: np.ndarray, pos: np.ndarray,
                      active: np.ndarray, n_valid: np.ndarray,
@@ -429,17 +442,18 @@ class ModelRunner:
         pos/active/n_valid masks, the state tables of a pooled-state
         engine, and the chunk's extra inputs (`_chunk_extra`), one entry
         per slot in `rows` (default: every slot, [B, ...]). Before the
-        replay, image embeddings fill their active slots' cross caches and
-        the other fresh slots' are zeroed (`_write_cross`). Returns
-        last-valid logits [B, 1, V], valid until the next step."""
+        replay, fresh slots' SSM state is zeroed, and image embeddings
+        fill their active slots' cross caches and the other fresh slots'
+        are zeroed (`_write_state`). Returns last-valid logits [B, 1, V],
+        valid until the next step."""
         extra = extra or {}
         if "frames" in extra:
             raise NotImplementedError(
                 "frames frontends are not ported yet: see ROADMAP.md queue "
-                "1, 'Still to port', item 3")
+                "1, 'Still to port', item 1")
         arrays = self._tables(block_tables, state_tables)
-        if self._cross_layers:    # without them, images are ignored, as in JAX
-            self._write_cross(
+        if self._ssm_layers or self._cross_layers:  # else images are ignored
+            self._write_state(
                 extra.get("image_embeds"),
                 np.arange(self.scfg.batch_slots) if rows is None
                 else np.asarray(rows), pos, active, arrays.get("state"))
@@ -634,7 +648,8 @@ class ModelRunner:
                         state_page: int = -1) -> None:
         """Gather a victim's pages from every page-pool leaf (k_bits + v,
         or the fp k + v) and, when it holds one, its state entry from
-        every state layer (the pooled cross caches), one `index_select`
+        every state layer (SSM h and conv, the pooled cross caches), one
+        `index_select`
         each, on the current stream ahead of the plan's replays: stream
         order snapshots the pre-recycle contents. On the card each gather
         then goes to pinned host memory by a non-blocking copy; the host
@@ -684,11 +699,12 @@ class ModelRunner:
     # ------------------------------------------------------------------
     # pooled state entry ops (in place, outside the captured graphs)
     # ------------------------------------------------------------------
-    def _state_zero(self, entries: np.ndarray) -> None:
-        """Zero rows `entries` of every cross layer's cache: a dense
-        engine's slots, or a pooled engine's state entries."""
+    def _state_zero(self, entries: np.ndarray, layers) -> None:
+        """Zero rows `entries` of the state of `layers` (SSM or cross
+        layers): a dense engine's slots, or a pooled engine's state
+        entries."""
         idx = torch.from_numpy(np.asarray(entries, np.int64)).to(self.device)
-        for i in self._cross_layers:
+        for i in layers:
             for leaf in self.caches[i].values():
                 leaf.index_fill_(0, idx, 0)
 

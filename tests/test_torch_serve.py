@@ -454,12 +454,43 @@ def test_unported_serving_features_raise(kw):
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b",
                                   "dbrx-132b"])
-def test_unported_layer_patterns_raise(arch):
+def test_ssm_and_moe_layer_patterns_build_from_jax(arch):
     """SSM layers (mamba2, jamba's "M" positions) and MoE FFNs (jamba,
-    dbrx) are not ported: building the model raises, naming the ROADMAP
-    item."""
+    dbrx) are served: the model builds, and the weight bridge carries
+    every JAX leaf into it bit for bit (SSM mixers by name, the float32
+    router, stacked [E, D, F] expert weights), one port parameter per
+    leaf. Their serving parity is pinned in test_torch_ssm_moe.py."""
+    jcfg = jget_config(arch, reduced=True)
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    T.check_supported(cfg)
+    tree = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(3),
+                                                   jcfg))
+    model = params_from_numpy(tree, cfg)
+    span, n_leaves = len(cfg.layer_pattern), 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [p.key for p in path]
+        if keys[0] != "blocks":
+            continue
+        n_leaves += 1
+        pos = int(keys[1][3:])
+        for g in range(cfg.n_groups):
+            obj = model.blocks[g * span + pos]
+            for key in keys[2:]:     # an SSM's gated norm is one tensor
+                if not isinstance(obj, torch.Tensor):
+                    obj = getattr(obj, key)
+            np.testing.assert_array_equal(obj.numpy(), leaf[g])
+    assert n_leaves * cfg.n_groups == sum(
+        1 for name in model.state_dict() if name.startswith("blocks."))
+
+
+@pytest.mark.parametrize("arch", ["bert-base-had", "hubert-xlarge",
+                                  "deit-t"])
+def test_unported_layer_patterns_raise(arch):
+    """Encoders (learned positions, bidirectional attention; hubert's
+    frames frontend) are not ported: building the model raises, naming
+    the ROADMAP item."""
+    cfg = get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
         T.Transformer(cfg)
 
 
