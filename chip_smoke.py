@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs eight phases; any failure exits non-zero before the result line.
+runs nine phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -122,6 +122,24 @@ runs eight phases; any failure exits non-zero before the result line.
    phase 6's prompts without images: paged (K1 + K2), dense (K1 + K4),
    page_topn 255 (K3 + K2) and fp paged, each with 2 graphs and the
    launch rule; dense and page_topn-255 tokens equal paged's.
+9. HAD distillation and training (no kernel of its own: the JAX package
+   trains through no Pallas kernel), after phase 8's model is freed:
+   (a) reduced smollm-135m widths in float32, CPU against card: one
+   pretrain step and one distill step in each of the four stages from
+   the same seeded teacher and batch, metrics and every updated leaf
+   allclose; (b) bert-base-had as published (12 layers, context 256, N
+   30): a teacher fitted to `classification_task`, Eq. 12 sigmas, then
+   `tiny_schedule(5)` through all four stages at batch 16 (stage, c and
+   the attention-KL switch checked at each step; step ms, tokens/s, peak
+   memory, and the had_eval student's accuracy beside the teacher's);
+   (c) deit-t as published through `frames` (197 patches of width 192):
+   five distill steps; (d) smollm-135m as published (30 layers, bf16,
+   remat): Eq. 12 sigmas, ten distill steps at seq 2048, batch 4 through
+   all four stages (step ms, tokens/s, peak memory under 10 GiB, the
+   device's busy share of one more step from torch.profiler), then the
+   distilled student served on the binary paged engine under phase 4's
+   launch rule with 2 graphs (4 requests), its tokens equal to an engine
+   over the student rebuilt from its saved checkpoint.
 
 `--profile DIR` profiles the prefill of one 3072-token prompt and decode
 windows of the paged, the dense, the full-precision paged and the
@@ -2234,6 +2252,419 @@ def phase8():
     return totals, kept
 
 
+# ---------------------------------------------------------------------------
+# phase 9: HAD distillation and training
+# ---------------------------------------------------------------------------
+
+# (a)'s schedule: one step in each stage (c 5.0, 0.5, 0.05, 0.05)
+STAGE_SCHED = dict(c0=5.0, decay=0.1, stage3_steps=1, stage4_steps=1)
+# CPU against card after one step: metrics at 1e-4 relative; a student
+# leaf within a tenth of one AdamW step (lr 1e-3), since an element whose
+# gradient is a cancellation at float noise moves a noise-chosen part of
+# a step (tests/test_torch_train.py's STEP_TOL)
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _to(batch: dict, dev) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _timed_steps(fn, state, batches, dev) -> tuple:
+    """Run `fn` over `batches`, the host waiting for each step; returns
+    (state, per-step metrics as floats, per-step seconds)."""
+    import torch
+    hist, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, _to(b, dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        hist.append({k: float(v) for k, v in m.items()})
+    return state, hist, secs
+
+
+def _check_schedule(tag, hist, sched) -> None:
+    """Every metric finite; stage and c those of the schedule at each
+    step; the loss att_kl + out_kl through stage 3 and out_kl after (the
+    attention-KL term on through stage 3 only)."""
+    import math
+
+    import numpy as np
+    for i, m in enumerate(hist):
+        check(all(math.isfinite(v) for v in m.values()), (tag, i, m))
+        check(m["stage"] == sched.stage_at_traced(i), (tag, i, m["stage"]))
+        check(np.isclose(m["c"], float(sched.c_at(i)), rtol=1e-6),
+              (tag, i, m["c"]))
+        att = m["att_kl"] if i < sched.stage3_end else 0.0
+        check(np.isclose(m["loss"], att + m["out_kl"] + 0.01 * m["moe_aux"],
+                         rtol=1e-5, atol=1e-6), (tag, i, m))
+    check(sorted({m["stage"] for m in hist}) == [1, 2, 3, 4], tag)
+
+
+def phase9a() -> None:
+    """smollm-135m at its reduced widths (one layer, d 64, 4 heads over 2,
+    float32) on the CPU and on the card from the same seeded teacher, the
+    sigmas of Eq. 12 estimated on the CPU: one pretrain step, then one
+    distill step in each of the four stages from the same teacher, student
+    and batch (the step counter set to the stage's first step). Loss,
+    att_kl, out_kl and grad_norm allclose (METRIC_TOL), every updated
+    student leaf within TRAIN_TOL. Stages 3-4 take the logits as integer
+    sign products times sigma_q * sigma_k, so ties at the top-N threshold
+    stay ties on both devices."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.binarize import CSchedule
+    from repro_torch.core.distill import DistillConfig
+    from repro_torch.data import lm_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam, schedules
+    from repro_torch.train import steps as STEPS
+    cfg = get_config("smollm-135m", reduced=True)
+    teacher = T.init_params(cfg, torch.Generator().manual_seed(9))
+    data = lm_stream(vocab=cfg.vocab_size, batch=2, seq=128, seed=9)
+    batches = [next(data) for _ in range(3)]
+    STEPS.estimate_and_set_sigmas(teacher, cfg, [_to(b, "cpu")
+                                                 for b in batches[:2]])
+    opt = adam.AdamWConfig()
+    dcfg = DistillConfig(schedule=CSchedule(**STAGE_SCHED),
+                         lr_stages_123=1e-3, lr_stage_4=1e-4)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = []
+        st = STEPS.init_pretrain_state(
+            cfg, opt, model=T.init_params(cfg, torch.Generator()
+                                          .manual_seed(9)), device=dev)
+        fn = STEPS.build_pretrain_step(cfg, opt, schedules.constant(1e-3))
+        st, m = fn(st, _to(batches[2], dev))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {n: t.detach().cpu() for n, t in
+                     T.named_tensors(st["params"]).items()}))
+        fn = STEPS.build_distill_step(cfg, dcfg, opt)
+        for stage in (1, 2, 3, 4):
+            st = STEPS.init_distill_state(cfg, opt,
+                                          teacher=copy.deepcopy(teacher),
+                                          device=dev)
+            st["step"].fill_(stage - 1)
+            st, m = fn(st, _to(batches[2], dev))
+            check(float(m["stage"]) == stage, (dev, stage, m["stage"]))
+            out.append(({k: float(v) for k, v in m.items()},
+                        {n: t.detach().cpu() for n, t in
+                         T.student_tensors(cfg, st["student"]).items()}))
+        runs[dev] = out
+    names = ["pretrain"] + [f"distill stage {i}" for i in (1, 2, 3, 4)]
+    for name, (mc, tc), (mg, tg) in zip(names, runs["cpu"], runs["cuda"]):
+        for k in mc:
+            check(np.allclose(mg[k], mc[k], **METRIC_TOL),
+                  (name, k, mg[k], mc[k]))
+        worst = max(float((tg[n] - tc[n]).abs().max()) for n in tc)
+        for n in tc:
+            check(np.allclose(tg[n].numpy(), tc[n].numpy(), **TRAIN_TOL),
+                  (name, n))
+        keys = [k for k in ("loss", "att_kl", "out_kl", "grad_norm")
+                if k in mc]
+        log(f"phase 9 (a): {name}: cpu/cuda " + ", ".join(
+            f"{k} {mc[k]:.6g}/{mg[k]:.6g}" for k in keys)
+            + f"; leaves max |cuda - cpu| {worst:.3e} over {len(tc)} "
+              f"tensors")
+
+
+def _cls_accuracy(model, cfg, tasks, mode: str, n: int) -> float:
+    """Accuracy of the class logits at position 0 (the benchmarks'
+    encoder readout) over `tasks` (TaskBatches), in `mode`."""
+    import torch
+    from repro_torch.models import transformer as T
+    right = total = 0
+    with torch.no_grad():
+        for tb in tasks:
+            lg = T.forward(model, _to(tb.inputs, "cuda"), cfg=cfg, mode=mode,
+                           att={"n": n}).logits[:, 0, :cfg.vocab_size]
+            right += int((lg.argmax(-1).cpu().numpy() == tb.labels).sum())
+            total += len(tb.labels)
+    return right / total
+
+
+def phase9b() -> None:
+    """bert-base-had as published (12 layers, d 768, 12 heads, context
+    256, N 30: the paper's GLUE setting), float32 as the JAX package's
+    config: a teacher fitted for 60 steps to `classification_task` (2
+    classes, batch 16; cross entropy on the class logits at position 0,
+    AdamW lr 1e-4), Eq. 12 sigmas from 4 batches, then `tiny_schedule(5)`
+    through all four stages (25 steps, output_positions "last"). Checked:
+    every metric finite; stage and c those of the schedule; the attention
+    KL in the loss through stage 3 only. Printed: step ms, tokens/s, peak
+    memory, and the had_eval student's accuracy beside the std teacher's
+    on 8 held-out batches (reported, not checked)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import losses
+    from repro_torch.core.distill import DistillConfig, tiny_schedule
+    from repro_torch.data import classification_task, take
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as STEPS
+    cfg = get_config("bert-base-had")
+    seq, batch = 256, 16
+    n = cfg.had.topn(seq)
+    check(n == 30, n)
+    task = classification_task(vocab=cfg.vocab_size, n_classes=2,
+                               batch=batch, seq=seq, seed=0)
+    held = take(classification_task(vocab=cfg.vocab_size, n_classes=2,
+                                    batch=batch, seq=seq, seed=1), 8)
+    teacher = T.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), device="cuda")
+    named = T.named_tensors(teacher)
+    for t in named.values():
+        t.requires_grad_(True)
+    tcfg = adam.AdamWConfig(grad_clip=1.0)
+    opt = adam.init(named, tcfg)
+    t0 = time.perf_counter()
+    for _ in range(60):
+        tb = next(task)
+        out = T.forward(teacher, _to(tb.inputs, "cuda"), cfg=cfg)
+        loss = losses.softmax_cross_entropy(
+            out.logits[:, 0, :cfg.vocab_size],
+            torch.from_numpy(tb.labels).to("cuda"))
+        grads = dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()), allow_unused=True)))
+        grads = {k: torch.zeros_like(named[k]) if g is None else g
+                 for k, g in grads.items()}
+        opt, _ = adam.update(grads, opt, named, lr=1e-4, cfg=tcfg)
+    torch.cuda.synchronize()
+    for t in named.values():
+        t.requires_grad_(False)
+    log(f"phase 9 (b): {cfg.name} {cfg.n_layers} layers d {cfg.d_model}, "
+        f"teacher fitted 60 steps in {time.perf_counter() - t0:.1f} s "
+        f"(last CE {loss.item():.4f})")
+    STEPS.estimate_and_set_sigmas(
+        teacher, cfg, [_to(tb.inputs, "cuda") for tb in take(task, 4)])
+    sched = tiny_schedule(5)
+    dcfg = DistillConfig(schedule=sched)
+    opt_cfg = adam.AdamWConfig()
+    state = STEPS.init_distill_state(cfg, opt_cfg, teacher=teacher,
+                                     device="cuda")
+    fn = STEPS.build_distill_step(
+        cfg, dcfg, opt_cfg, STEPS.StepConfig(output_positions="last"))
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, secs = _timed_steps(
+        fn, state, [tb.inputs for tb in take(task, sched.stage4_end)],
+        "cuda")
+    _check_schedule("9b", hist, sched)
+    ms = float(np.mean(secs[1:])) * 1e3
+    log(f"phase 9 (b): {sched.stage4_end} distill steps through stages "
+        f"{sorted({int(m['stage']) for m in hist})}, batch {batch} x {seq}, "
+        f"N {n}: step {ms:.2f} ms (mean of steps 2-{len(secs)}; first "
+        f"{secs[0] * 1e3:.1f} ms), {batch * seq / ms * 1e3:.0f} tokens/s, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"att_kl {hist[0]['att_kl']:.4f} -> {hist[-1]['att_kl']:.4f}, "
+        f"out_kl {hist[0]['out_kl']:.4f} -> {hist[-1]['out_kl']:.4f}")
+    acc_t = _cls_accuracy(teacher, cfg, held, "std", n)
+    acc_s = _cls_accuracy(state["student"], cfg, held, "had_eval", n)
+    log(f"phase 9 (b): accuracy on {8 * batch} held-out samples: teacher "
+        f"(std) {acc_t:.4f}, student (had_eval, N {n}) {acc_s:.4f} "
+        f"(reported, not checked)")
+
+
+def phase9c() -> None:
+    """deit-t as published (12 layers, d 192, 3 heads of 64), float32:
+    197 patch embeddings of width 192 from `patch_task` enter through
+    `frames` and frontend_proj, plus learned positions; Eq. 12 sigmas
+    from 2 batches, then `tiny_schedule(1)` (5 distill steps, all four
+    stages) at batch 16: every metric finite, the schedule kept."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.distill import DistillConfig, tiny_schedule
+    from repro_torch.data import patch_task, take
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as STEPS
+    cfg = get_config("deit-t")
+    task = patch_task(dim=cfg.frontend_dim, n_patches=197, n_classes=1000,
+                      batch=16, seed=0)
+    teacher = T.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), device="cuda")
+    STEPS.estimate_and_set_sigmas(
+        teacher, cfg, [_to(tb.inputs, "cuda") for tb in take(task, 2)])
+    sched = tiny_schedule(1)
+    opt = adam.AdamWConfig()
+    state = STEPS.init_distill_state(cfg, opt, teacher=teacher,
+                                     device="cuda")
+    fn = STEPS.build_distill_step(cfg, DistillConfig(schedule=sched), opt)
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, secs = _timed_steps(
+        fn, state, [tb.inputs for tb in take(task, sched.stage4_end)],
+        "cuda")
+    _check_schedule("9c", hist, sched)
+    log(f"phase 9 (c): {cfg.name} frames [16, 197, {cfg.frontend_dim}], "
+        f"N {cfg.had.topn(197)}: {len(hist)} distill steps, stages "
+        f"{[int(m['stage']) for m in hist]}, step "
+        f"{float(np.mean(secs[1:])) * 1e3:.2f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, out_kl "
+        f"{hist[0]['out_kl']:.4f} -> {hist[-1]['out_kl']:.4f}")
+
+
+def _busy_share(fn) -> str:
+    """The device's busy share over one call of `fn`, from torch.profiler:
+    the summed time of its CUDA kernels over the host wall time of the
+    window, with that time by group (GEMMs, the top-N selection, softmax,
+    reductions, the rest); "not measured" when the profiler sees no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        key = ("GEMM" if any(t in name for t in ("gemm", "cutlass", "xmma",
+                                                  "sm90", "cublas"))
+               else "top-N select" if any(t in name for t in (
+                   "kthvalue", "radix", "sort", "select"))
+               else "softmax" if "softmax" in name
+               else "reduce" if "reduce" in name
+               else "elementwise and other")
+        groups[key] = groups.get(key, 0.0) + getattr(
+            e, "self_device_time_total",
+            getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    dev_ms = sum(groups.values())
+    if dev_ms <= 0:
+        return "not measured (the profiler saw no device time)"
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(groups.items(), key=lambda kv: -kv[1]))
+    return (f"{dev_ms:.1f} ms of kernels in {wall * 1e3:.1f} ms (busy "
+            f"share {dev_ms / 1e3 / wall:.3f}, profiled; ms by group: "
+            f"{parts})")
+
+
+def phase9d() -> None:
+    """smollm-135m as published (30 layers, bf16, remat on), seeded weights
+    on the card: Eq. 12 sigmas from 2 batches, then a distill at seq 2048,
+    batch 4 through all four stages (`tiny_schedule(2)`: 10 steps, 2-4 in
+    each stage). Printed: step ms, peak memory, device busy share of one
+    more step (torch.profiler, after the serving below). The student is
+    saved in the JAX state layout (CheckpointManager), its serving scales
+    refreshed, and served on the binary paged Engine under phase 4's
+    launch rule (K1 30 a chunk, K2 30 a decode step) with 2 graphs, 4
+    requests of phase 4's prompts; a fresh Engine over a model rebuilt
+    from the saved checkpoint gives the same greedy tokens."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.core.distill import DistillConfig, tiny_schedule
+    from repro_torch.data import lm_stream, take
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.serve import Telemetry
+    from repro_torch.train import steps as STEPS
+    cfg = get_config("smollm-135m")
+    check(cfg.remat and cfg.param_dtype == "bfloat16", cfg)
+    seq, batch = 2048, 4
+    data = lm_stream(vocab=cfg.vocab_size, batch=batch, seq=seq, seed=0)
+    teacher = T.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), device="cuda")
+    t0 = time.perf_counter()
+    STEPS.estimate_and_set_sigmas(teacher, cfg,
+                                  [_to(b, "cuda") for b in take(data, 2)])
+    torch.cuda.synchronize()
+    sig = teacher.blocks[0].mixer
+    log(f"phase 9 (d): {cfg.name} {cfg.n_layers} layers {cfg.param_dtype} "
+        f"remat, sigmas of 2 batches [{batch}, {seq}] in "
+        f"{time.perf_counter() - t0:.2f} s (layer 0: sigma_q "
+        f"{sig.sigma_q.item():.4f}, sigma_k {sig.sigma_k.item():.4f})")
+    sched = tiny_schedule(2)
+    opt = adam.AdamWConfig()
+    dcfg = DistillConfig(schedule=sched)
+    state = STEPS.init_distill_state(cfg, opt, teacher=teacher,
+                                     device="cuda")
+    fn = STEPS.build_distill_step(cfg, dcfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, secs = _timed_steps(fn, state, take(data, sched.stage4_end),
+                                     "cuda")
+    _check_schedule("9d", hist, sched)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(peak < 10.0, f"distill step peak {peak:.2f} GiB")
+    ms = float(np.mean(secs[1:])) * 1e3
+    log(f"phase 9 (d): {len(hist)} distill steps [{batch}, {seq}] N "
+        f"{cfg.had.topn(seq)}, stages {[int(m['stage']) for m in hist]}: "
+        f"step {ms:.1f} ms (mean of steps 2-{len(secs)}; first "
+        f"{secs[0] * 1e3:.0f} ms), {batch * seq / ms * 1e3:.0f} tokens/s, "
+        f"peak {peak:.2f} GiB; att_kl {hist[0]['att_kl']:.4f} -> "
+        f"{hist[-1]['att_kl']:.4f}, out_kl {hist[0]['out_kl']:.4f} -> "
+        f"{hist[-1]['out_kl']:.4f}")
+
+    student = state["student"]
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    CheckpointManager(ck).save(int(state["step"]),
+                               {"state": STEPS.state_tree(state)})
+    student.refresh_scales()
+    _, prompts, _, base = _workload(cfg)
+    prompts, gen = prompts[:4], 16
+    runs = {}
+    for name in ("distilled", "from_checkpoint"):
+        if name == "from_checkpoint":
+            _, got = CheckpointManager(ck).restore(
+                {"state": STEPS.state_tree(state)})
+            model = params_from_numpy(got["state"]["student"], cfg,
+                                      device="cuda")
+        else:
+            model = student
+        eng = _engine(cfg, model, dict(base, paged=True), "cuda",
+                      telemetry=Telemetry())
+        r = _serve_run(eng, prompts, gen, stagger=0)
+        check(eng.runner.graph_count() == 2,
+              (name, "graphs", eng.runner.graph_count()))
+        _check_launches(f"9d {name}", eng, r, (pdec,))
+        st = r["stats"]
+        log(f"phase 9 (d) [{name}]: served {len(prompts)} requests "
+            f"({[len(p) for p in prompts]} tokens, {gen} new): "
+            f"{st['prefill_chunks']} chunks, {st['decode_steps']} decode "
+            f"steps, 2 step graphs, launches {r['counts']}, tokens sha1 "
+            f"{r['digest']}, {_latency(r)}")
+        runs[name] = r
+        del eng
+    check(runs["distilled"]["digest"] == runs["from_checkpoint"]["digest"]
+          and all(np.array_equal(a, b) for a, b in
+                  zip(runs["distilled"]["tokens"],
+                      runs["from_checkpoint"]["tokens"])),
+          "9d: the checkpointed student's tokens differ")
+    log("phase 9 (d): the engine over the checkpoint's student gives the "
+        "distilled student's tokens bit for bit")
+    more = next(data)
+    log("phase 9 (d): one more distill step: "
+        + _busy_share(lambda: fn(state, _to(more, "cuda"))))
+
+
+def phase9() -> None:
+    t0 = time.perf_counter()
+    phase9a()
+    _free()
+    phase9b()
+    _free()
+    phase9c()
+    _free()
+    phase9d()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+
 def profile_decode(eng, name: str, out_dir: str, prompt_len: int) -> None:
     """Device time by group in a decode window of a full-size engine: 4
     slots filled with `prompt_len`-token prompts, then 8 decode steps run
@@ -2564,6 +2995,8 @@ def main() -> int:
             profile_decode(engine, "dbrx_decode_4x2k_paged", args.profile,
                            2048)
         del engine
+        _free()
+        phase9()
     except Exception:
         traceback.print_exc()
         return 1

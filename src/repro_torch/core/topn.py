@@ -1,19 +1,86 @@
-"""Top-N attention sparsification, histogram path (torch twin of the
-inference half of ``repro.core.topn``).
+"""Top-N attention sparsification (torch twin of ``repro.core.topn``,
+paper §3.2, Eq. 6-7).
 
-Integer binary scores live on the d+1 lattice {-d, -d+2, ..., d}, so a
-(d+1)-bin histogram and a reverse cumulative count give the exact top-N
-threshold with no sort. Every element with score >= threshold is kept, so
-the kept count is >= min(N, row length) (ties included).
+Two implementations:
 
-Only what the kernels' plain versions need is here; the continuous
-(training-time) threshold methods wait for the training slice.
+* `topn_threshold_exact` -- continuous logits (training stages): the N-th
+  largest value per row, by an ascending sort ("sort") or a fixed
+  26-iteration bisection on the threshold ("bisect"); the mask keeps
+  scores >= that value (ties at the threshold are kept).
+* histogram path -- integer binary scores live on the d+1 lattice
+  {-d, -d+2, ..., d}, so a (d+1)-bin histogram and a reverse cumulative
+  count give the exact top-N threshold with no sort.
+
+Every element with score >= threshold is kept, so the kept count is
+>= min(N, row length) (ties included).
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+THRESHOLD_METHODS = ("sort", "bisect")
+
+
+def _bisect_threshold(scores: torch.Tensor, n_eff: int, *,
+                      valid: torch.Tensor | None = None,
+                      iters: int = 26) -> torch.Tensor:
+    """Bisect on [min_valid, max_valid] (masked NEG_INF entries never
+    enter the range); count(scores >= lo) >= n_eff at every step."""
+    if valid is not None:
+        lo = torch.where(valid, scores, torch.inf).amin(-1)
+        hi = torch.where(valid, scores, -torch.inf).amax(-1)
+    else:
+        lo = scores.amin(-1)
+        hi = scores.amax(-1)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = (scores >= mid[..., None]).to(torch.int32).sum(-1)
+        ge = cnt >= n_eff
+        lo = torch.where(ge, mid, lo)
+        hi = torch.where(ge, hi, mid)
+    return lo
+
+
+def topn_threshold_exact(scores: torch.Tensor, n: int, *,
+                         valid: torch.Tensor | None = None,
+                         method: str | None = None) -> torch.Tensor:
+    """Per-row threshold = N-th largest valid score.
+
+    scores [..., m, k] float; valid: bool mask broadcastable to scores.
+    Returns thresholds [..., m] such that (scores >= t) keeps >= min(n,
+    row) elements; a row with fewer than n valid keys gets NEG_INF (keep
+    all). The scores are detached (JAX's stop_gradient: the selection is
+    a hard decision). method: "sort" (default: the (k - n)-th value of an
+    ascending sort, as JAX takes it) or "bisect".
+    """
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG_INF)
+    k = scores.shape[-1]
+    n_eff = min(n, k)
+    scores = scores.detach()
+    method = "sort" if method is None else method
+    assert method in THRESHOLD_METHODS, method
+    if method == "bisect":
+        return _bisect_threshold(
+            scores, n_eff,
+            valid=None if valid is None else torch.broadcast_to(
+                valid, scores.shape))
+    # the (k - n_eff)-th value of an ascending sort, found by selection
+    # (the same element; no sorted copy and no index tensor)
+    return torch.kthvalue(scores, k - n_eff + 1, dim=-1).values
+
+
+def topn_mask(scores: torch.Tensor, n: int, *,
+              valid: torch.Tensor | None = None,
+              method: str | None = None) -> torch.Tensor:
+    """Boolean mask keeping (at least) the top-n valid scores per row."""
+    t = topn_threshold_exact(scores, n, valid=valid, method=method)
+    mask = scores >= t[..., None]
+    if valid is not None:
+        mask = mask & valid
+    return mask
 
 
 def score_to_level(scores: torch.Tensor, d: int) -> torch.Tensor:

@@ -1,5 +1,14 @@
-"""GQA attention block, serving half (torch twin of the serving code in
-``repro.models.attention_block``).
+"""GQA attention block (torch twin of ``repro.models.attention_block``):
+the training / evaluation forward modes and the serving paths.
+
+Training and evaluation (`attn_forward`, no cache): "std" full-precision
+softmax (teacher / baseline), "fp_topn" top-N only, "had_train" the
+stage-scheduled binarization + top-N, "had_eval" hard-sign binarization +
+top-N, and the "sab_train" / "sab_eval" attention-matrix binarization
+ablation; `attn_forward_distill` is the fused teacher + student forward
+with the Eq. 9 KL. Binarization follows RoPE. In stages 3-4 and in
+had_eval the student's logits are taken as the integer product of the
+signs times sigma_q * sigma_k (``core.attention``: exact top-N ties).
 
 On the binary (HAD) path keys and queries are binarized after RoPE and
 packed to 32-bit words. Two caches, as in the JAX package:
@@ -39,6 +48,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import attention as A
+from repro_torch.core import binarize as BZ
 from repro_torch.core import hamming
 from repro_torch.core.attention import standard_attention
 from repro_torch.kernels import ops
@@ -78,6 +89,147 @@ class Attention(nn.Module):
         sk = np.float32(self.sigma_k.item())
         self.scale = float(np.float32(sq * sk) * np.float32(self.dh ** -0.5))
 
+
+# ---------------------------------------------------------------------------
+# training / evaluation forward (no cache)
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p: Attention, x: torch.Tensor, x_kv: torch.Tensor,
+                 cfg: ModelConfig):
+    """-> q [B, H, S, Dh], k / v [B, Hk, Skv, Dh]."""
+    b, s, _ = x.shape
+    skv = x_kv.shape[1]
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q = (x @ p.wq).reshape(b, s, h, dh).transpose(1, 2)
+    k = (x_kv @ p.wk).reshape(b, skv, hk, dh).transpose(1, 2)
+    v = (x_kv @ p.wv).reshape(b, skv, hk, dh).transpose(1, 2)
+    return q, k, v
+
+
+def _rope(q, k, cfg: ModelConfig):
+    if cfg.pos == "rope":
+        q = common.apply_rope(q, torch.arange(q.shape[2], device=q.device),
+                              theta=cfg.rope_theta)
+        k = common.apply_rope(k, torch.arange(k.shape[2], device=k.device),
+                              theta=cfg.rope_theta)
+    return q, k
+
+
+def _student_qk(p: Attention, q: torch.Tensor, k: torch.Tensor, *,
+                stage: int | None, c: torch.Tensor | None):
+    """The student's Q/K for top-N attention: (q, k, qk_scale).
+
+    stage 1-2: the tanh transforms (qk_scale None); stage 3-4: the STE
+    signs of q / sigma_q and k / sigma_k with qk_scale = sigma_q * sigma_k,
+    equal in value to JAX's sigma * STE(x / sigma) products, gradients
+    included, with exact ties; stage None (had_eval): the hard signs."""
+    if stage is None or stage >= BZ.Stage.STAGE3_STE:
+        # sigma rounded to the activations' dtype, as JAX casts it; the
+        # product in float32, as JAX's float32 logits multiply the terms
+        sq, sk = p.sigma_q.to(q.dtype), p.sigma_k.to(k.dtype)
+        qk_scale = sq.to(torch.float32) * sk.to(torch.float32)
+        if stage is None:
+            return BZ.hard_sign(q), BZ.hard_sign(k), qk_scale
+        return BZ.ste_sign(q / sq), BZ.ste_sign(k / sk), qk_scale
+    return (BZ.binarize(q, stage=stage, c=c, sigma=p.sigma_q),
+            BZ.binarize(k, stage=stage, c=c, sigma=p.sigma_k), None)
+
+
+def _stage_c(att: dict):
+    """(stage, c) of the step in `att` (JAX `binarize_scheduled`: stage 4
+    uses stage 3's transform)."""
+    sched: BZ.CSchedule = att["sched"]
+    step = int(att["step"])
+    return sched.stage_at_traced(step), sched.c_at(step)
+
+
+def attn_forward(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
+                 mode: str, att: dict, x_kv: torch.Tensor | None = None,
+                 cross: bool = False) -> torch.Tensor:
+    """Training / evaluation forward (no cache): x [B, S, D] -> [B, S, D].
+    att carries n, sched, step, threshold_method, attn_dtype and the
+    optional kv_valid / kv_valid_cross [B, Skv] masks."""
+    x_kv = x if x_kv is None else x_kv
+    q, k, v = _project_qkv(p, x, x_kv, cfg)
+    if not cross:
+        q, k = _rope(q, k, cfg)
+    causal = cfg.causal and not cross
+    scale = cfg.dh ** -0.5
+    kv_valid = att.get("kv_valid_cross") if cross else att.get("kv_valid")
+    if mode == "std" or not cfg.had.enabled:
+        return _out(p, standard_attention(q, k, v, scale=scale, causal=causal,
+                                          kv_valid=kv_valid))
+    n = att["n"]
+    kw = dict(n=n, scale=scale, causal=causal, kv_valid=kv_valid,
+              method=att.get("threshold_method"),
+              attn_dtype=att.get("attn_dtype", torch.float32))
+    if mode == "fp_topn":
+        return _out(p, A.had_topn_attention(q, k, v, **kw))
+    if mode in ("had_train", "had_eval"):
+        stage, c = _stage_c(att) if mode == "had_train" else (None, None)
+        qb, kb, qk_scale = _student_qk(p, q, k, stage=stage, c=c)
+        return _out(p, A.had_topn_attention(qb, kb, v, qk_scale=qk_scale,
+                                            **kw))
+    if mode in ("sab_train", "sab_eval"):
+        return _out(p, _sab_attention(q, k, v, scale=scale, causal=causal))
+    raise ValueError(f"unknown mode {mode}")
+
+
+def _sab_attention(q, k, v, *, scale: float, causal: bool) -> torch.Tensor:
+    """"w/ SAB" ablation (paper tables 1-2): BiViT-style softmax-aware
+    binarization of the ATTENTION MATRIX (Q/K stay full precision). A row
+    is binarized to {0, alpha} with alpha preserving the kept mass; the
+    STE passes gradients through the comparison."""
+    hk = k.shape[1]
+    qg = A._group(q, hk)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        qi = torch.arange(q.shape[2], device=q.device)[:, None]
+        kj = torch.arange(k.shape[2], device=q.device)[None, :]
+        logits = torch.where(kj <= qi, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    thresh = probs.mean(-1, keepdim=True)
+    keep = (probs >= thresh).to(torch.float32)
+    keep = keep + (probs - probs.detach())                  # STE
+    kd = keep.detach()
+    alpha = ((probs * kd).sum(-1, keepdim=True)
+             / kd.sum(-1, keepdim=True).clamp_min(1.0))
+    a_bin = keep * alpha
+    a_bin = a_bin / a_bin.sum(-1, keepdim=True).clamp_min(1e-9)
+    ctx = torch.einsum("bhgqk,bhkd->bhgqd", a_bin, v.to(torch.float32))
+    return A._ungroup(ctx).to(v.dtype)
+
+
+def attn_forward_distill(pt: Attention, ps: Attention, xt: torch.Tensor,
+                         xs: torch.Tensor, *, cfg: ModelConfig, att: dict,
+                         xt_kv: torch.Tensor | None = None,
+                         xs_kv: torch.Tensor | None = None,
+                         cross: bool = False):
+    """Teacher + student fused forward with the attention KL (Eq. 9).
+    Returns (yt, ys, kl_sum, row_count)."""
+    xt_kv = xt if xt_kv is None else xt_kv
+    xs_kv = xs if xs_kv is None else xs_kv
+    qt, kt, vt = _project_qkv(pt, xt, xt_kv, cfg)
+    qs, ks, vs = _project_qkv(ps, xs, xs_kv, cfg)
+    if not cross:
+        qt, kt = _rope(qt, kt, cfg)
+        qs, ks = _rope(qs, ks, cfg)
+    stage, c = _stage_c(att)
+    qs, ks, qk_scale = _student_qk(ps, qs, ks, stage=stage, c=c)
+    res = A.distill_pair_attention(
+        qt, kt, vt, qs, ks, vs, n=att["n"], scale=cfg.dh ** -0.5,
+        causal=cfg.causal and not cross,
+        kv_valid=att.get("kv_valid_cross") if cross else att.get("kv_valid"),
+        q_block=cfg.q_block, method=att.get("threshold_method"),
+        qk_scale=qk_scale, attn_dtype=att.get("attn_dtype", torch.float32))
+    return (_out(pt, res.teacher_out), _out(ps, res.student_out),
+            res.kl_sum, res.row_count)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                binary: bool = True, device=None) -> dict:

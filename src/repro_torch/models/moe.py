@@ -1,5 +1,8 @@
-"""Mixture-of-Experts FFN for serving (torch twin of ``repro.models.moe``'s
-``moe_ffn(no_drop=True)``, the form the JAX serve step calls).
+"""Mixture-of-Experts FFN (torch twin of ``repro.models.moe``):
+`moe_ffn` is JAX's ``moe_ffn(no_drop=True)``, the form the serve step
+calls, and `moe_ffn_train` its training form (``no_drop=False``: capacity
+int(tg * k * capacity_factor / E) + 1, tokens past it dropped, plus the
+Switch load-balance aux loss).
 
 Tokens are cut into groups of `tg` (at most 512; the group size shrinks
 until it divides the token count, so groups may span batch rows), routed
@@ -57,26 +60,63 @@ def group_shape(tokens: int, cfg: ModelConfig) -> tuple[int, int, int]:
     return tokens // tg, tg, min(tg, max(int(4 * expected) + 1, 16))
 
 
+def _route(p: MoE, xg: torch.Tensor, cfg: ModelConfig):
+    """(router probabilities [G, Tg, E] float32, gates, experts)."""
+    k = cfg.experts_per_token
+    probs = torch.softmax(xg.to(torch.float32) @ p.router, dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[..., :k], experts[..., :k]
+    return (probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9),
+            experts)
+
+
 def route(p: MoE, xg: torch.Tensor, cfg: ModelConfig):
     """Top-k routing of grouped tokens xg [G, Tg, D]: (gates [G, Tg, k]
     float32, renormalised; experts [G, Tg, k] int64), each token's experts
     in descending probability, ties to the lowest expert (a stable sort;
     torch.topk does not promise the order of ties)."""
-    k = cfg.experts_per_token
-    probs = torch.softmax(xg.to(torch.float32) @ p.router, dim=-1)
-    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, experts = gates[..., :k], experts[..., :k]
-    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), experts
+    return _route(p, xg, cfg)[1:]
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
     """x [B, S, D] -> y [B, S, D]."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_token
     g, tg, cap = group_shape(b * s, cfg)
     xg = x.reshape(g, tg, d)
     gates, experts = route(p, xg, cfg)
-    dev = x.device
+    return _experts(p, xg, gates, experts, cap, cfg).reshape(b, s, d)
+
+
+def moe_ffn_train(p: MoE, x: torch.Tensor, *, cfg: ModelConfig,
+                  group_size: int = GROUP_SIZE
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training form: x [B, S, D] -> (y [B, S, D], aux load-balance
+    loss, a float32 scalar E * sum_e f_e * p_e over top-1 token fractions
+    f and mean router probabilities p). Each group's capacity is
+    int(tg * k * capacity_factor / E) + 1; tokens past it are dropped."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    tokens = b * s
+    tg = min(group_size, tokens)
+    while tokens % tg:
+        tg -= 1
+    cap = max(int(tg * k * cfg.capacity_factor / e) + 1, 1)
+    xg = x.reshape(tokens // tg, tg, d)
+    probs, gates, experts = _route(p, xg, cfg)
+    y = _experts(p, xg, gates, experts, cap, cfg)
+    top1 = F.one_hot(experts[..., 0], e).to(torch.float32)
+    aux = e * (top1.mean((0, 1)) * probs.mean((0, 1))).sum()
+    return y.reshape(b, s, d), aux
+
+
+def _experts(p: MoE, xg: torch.Tensor, gates: torch.Tensor,
+             experts: torch.Tensor, cap: int,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Dispatch grouped tokens xg [G, Tg, D] to per-expert buffers of
+    `cap` places a group, run the experts, combine: y [G, Tg, D]."""
+    g, tg, d = xg.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    dev = xg.device
     # each kept (token, slot) gets row experts * (G * cap) + g * cap + pos
     # of the [E * G * cap] expert buffer; dropped ones point at its extra
     # trash row, which no expert reads
@@ -94,7 +134,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
                                 e * g * cap))
         keeps.append(keep)
         fill = fill + oh.sum(1)
-    buf = torch.zeros((e * g * cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((e * g * cap + 1, d), dtype=xg.dtype, device=dev)
     flat = xg.reshape(g * tg, d)
     for r in rows:
         buf.index_copy_(0, r.reshape(-1), flat)
@@ -108,7 +148,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
     y = torch.zeros((g, tg, d), dtype=torch.float32, device=dev)
     for slot, (r, keep) in enumerate(zip(rows, keeps)):
         got = out.index_select(0, r.reshape(-1).clamp_max(e * g * cap - 1))
-        w = gates[..., slot].to(x.dtype).to(torch.float32)[..., None]
+        w = gates[..., slot].to(xg.dtype).to(torch.float32)[..., None]
         y = y + torch.where(keep[..., None], w * got.view(g, tg, d).to(
             torch.float32), torch.zeros((), device=dev))
-    return y.to(x.dtype).reshape(b, s, d)
+    return y.to(xg.dtype)

@@ -1,5 +1,6 @@
-"""Decoder LM for serving (torch twin of the serving half of
-``repro.models.transformer``).
+"""Model assembly (torch twin of ``repro.models.transformer``): the
+training / evaluation forward, the distillation forward and the serving
+step.
 
 `Transformer` holds per-layer `Block`s whose parameter names follow the
 JAX tree (``blocks/pos0/{norm1,mixer,norm2,ffn}``), with the JAX
@@ -10,37 +11,39 @@ JAX ``lax.scan`` over groups is a Python loop here. Layer
 A layer's mixer is picked by its pattern character: self-attention ("A"),
 cross-attention ("C") or a Mamba2 SSM ("M", models/ssm.py); its FFN is an
 MoE (models/moe.py) at the pattern positions `layer_uses_moe` names,
-else a dense MLP. So the port serves decoders (smollm-135m,
-llama-3.2-vision-11b, mamba2-130m, jamba-1.5-large-398b, dbrx-132b), on
-the binary path or the full-precision baseline, over the paged or the
-dense cache. Cross layers attend the image K/V of a static cache, filled
-from per-request image embeddings (``frontend_proj``, then each layer's
-wk/wv); SSM layers carry {h, conv} state. Both kinds of state are dense
-per-slot rows, or entries of a state pool addressed by ``state_tables``
-when the engine pools state. Encoders and frames frontends raise.
+else a dense MLP. Inputs are token embeddings, or `frames` through
+``frontend_proj`` (the audio / vision stub frontend of the encoders and
+of frames requests), plus learned positions (``pos_embed``) where the
+config has them; attention is causal or, for encoders, bidirectional.
+
+`forward` runs every mode of ``attention_block.attn_forward``;
+`forward_distill` runs teacher and student side by side with the Eq. 9
+KL. With ``cfg.remat`` both run each group of layers (and, for groups of
+more than one layer, each layer inside it) under
+``torch.utils.checkpoint``, as JAX nests ``jax.checkpoint``. The student
+of `student_subset` is a `Transformer` whose trainable tensors are its
+own and whose other tensors are the teacher's, shared.
+
+`serve_step` serves decoders on the binary path or the full-precision
+baseline, over the paged or the dense cache. Cross layers attend the
+image K/V of a static cache, filled from per-request image embeddings
+(``frontend_proj``, then each layer's wk/wv); SSM layers carry {h, conv}
+state. Both kinds of state are dense per-slot rows, or entries of a state
+pool addressed by ``state_tables`` when the engine pools state.
 """
 from __future__ import annotations
 
+import copy
+from typing import NamedTuple
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import losses
 from repro_torch.models import attention_block as AB
 from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model families this slice lacks,
-    naming their ROADMAP.md items (queue 1, 'Still to port')."""
-    todo = "is not ported yet: see ROADMAP.md queue 1, 'Still to port'"
-    if not cfg.causal or cfg.pos != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder or learned positions {todo}, item 3 "
-            f"(training, distillation and the encoder archs)")
-    if cfg.frontend_dim and "C" not in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: a frames frontend {todo}, item 1 (frames "
-            f"frontends)")
 
 
 def layer_kinds(cfg: ModelConfig) -> str:
@@ -92,7 +95,6 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         d, v, dt = cfg.d_model, cfg.padded_vocab, cfg.dtype
         self.embed = nn.Parameter(torch.zeros((v, d), dtype=dt, device=device),
@@ -100,10 +102,13 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(d, dt, device)
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.zeros((d, v), dtype=dt, device=device), requires_grad=False))
-        # image embeddings [.., frontend_dim] -> the cross layers' width
+        # frames or image embeddings [.., frontend_dim] -> the model width
         self.frontend_proj = (nn.Parameter(torch.zeros(
             (cfg.frontend_dim, d), dtype=dt, device=device),
             requires_grad=False) if cfg.frontend_dim else None)
+        self.pos_embed = (nn.Parameter(torch.zeros(
+            (cfg.max_pos, d), dtype=dt, device=device), requires_grad=False)
+            if cfg.pos == "learned" else None)
         self.blocks = nn.ModuleList(
             Block(cfg, kind, layer_uses_moe(cfg, i), device)
             for i, kind in enumerate(layer_kinds(cfg)))
@@ -120,7 +125,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cpu") -> Transformer:
     """Seeded random weights: truncated normal at fan-in std for dense
     weights (stacked expert weights [E, ...] take E as their fan-in, as
-    in the JAX package), normal * 0.02 for the embedding, ones for norms;
+    in the JAX package), normal * 0.02 for the embeddings (tokens and
+    learned positions), ones for norms;
     SSM layers: A_log 0, D 1, dt_bias 0, conv_w at std 0.5; MoE routers
     float32 at std 0.02 (the JAX init's distributions; jax.random's
     numbers differ). Drawn on the
@@ -141,6 +147,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             dense(model.lm_head)
         if model.frontend_proj is not None:
             dense(model.frontend_proj)
+        if model.pos_embed is not None:
+            model.pos_embed.copy_(common.embed_init(
+                tuple(model.pos_embed.shape), dt, generator=generator))
         for blk in model.blocks:
             if isinstance(blk.mixer, ssm.SSM):
                 dense(blk.mixer.w_in)
@@ -159,6 +168,284 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                     if w is not None:
                         dense(w)
     return model.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the student
+# ---------------------------------------------------------------------------
+
+def _share(mod: nn.Module, **own) -> nn.Module:
+    """A new module of mod's class holding mod's parameters, buffers and
+    children (the same tensors), with the `own` attributes replaced."""
+    new = mod.__class__.__new__(mod.__class__)
+    new.__dict__.update(mod.__dict__)
+    for slot in ("_parameters", "_buffers", "_modules"):
+        new.__dict__[slot] = dict(mod.__dict__[slot])
+    for name, val in own.items():
+        setattr(new, name, val)
+    return new
+
+
+def merge_student(cfg: ModelConfig, teacher: Transformer,
+                  student: Transformer) -> Transformer:
+    """The student's trainable subset (``cfg.trainable``) overlaid on the
+    teacher: with "all", the student itself; with "attention", a model
+    whose A / C layers hold the student's mixer and norm1 and whose every
+    other tensor is the teacher's."""
+    if cfg.trainable == "all":
+        return student
+    return _share(teacher, blocks=nn.ModuleList(
+        _share(tb, mixer=sb.mixer, norm1=sb.norm1) if kind in "AC" else tb
+        for kind, tb, sb in zip(layer_kinds(cfg), teacher.blocks,
+                                student.blocks)))
+
+
+def student_subset(cfg: ModelConfig, teacher: Transformer) -> Transformer:
+    """The student (Alg. 1 line 1): "all" -> a full copy of the teacher;
+    "attention" -> copies of the A / C mixers (sigmas included) and their
+    norm1, every other tensor the teacher's own, shared and not copied.
+    The copied tensors require grad (`student_tensors`), the teacher's do
+    not."""
+    if cfg.trainable == "all":
+        student = copy.deepcopy(teacher)
+    else:
+        student = _share(teacher, blocks=nn.ModuleList(
+            _share(b, mixer=copy.deepcopy(b.mixer),
+                   norm1=copy.deepcopy(b.norm1)) if kind in "AC" else b
+            for kind, b in zip(layer_kinds(cfg), teacher.blocks)))
+    for t in student_tensors(cfg, student).values():
+        t.requires_grad_(True)
+    return student
+
+
+def named_tensors(model: Transformer) -> dict[str, torch.Tensor]:
+    """Every parameter and buffer of `model` by its module path."""
+    out = dict(model.named_parameters())
+    out.update(model.named_buffers())
+    return out
+
+
+def student_tensors(cfg: ModelConfig,
+                    student: Transformer) -> dict[str, torch.Tensor]:
+    """The student's own tensors, JAX's `student_subset` tree leaves:
+    every tensor ("all"), or the A / C layers' mixer tensors and norm1
+    ("attention"). sigma_q / sigma_k are among them (the optimizer skips
+    them)."""
+    named = named_tensors(student)
+    if cfg.trainable == "all":
+        return named
+    kinds = layer_kinds(cfg)
+    return {name: t for name, t in named.items()
+            if name.startswith("blocks.")
+            and kinds[int(name.split(".")[1])] in "AC"
+            and name.split(".")[2] in ("mixer", "norm1")}
+
+
+# ---------------------------------------------------------------------------
+# training / evaluation forward
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(model: Transformer, batch: dict,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings, or `frames` [B, S, frontend_dim] through
+    frontend_proj (the audio / vision stub frontend), plus learned
+    positions."""
+    if "frames" in batch:
+        x = batch["frames"].to(cfg.dtype) @ model.frontend_proj
+    else:
+        x = model.embed[batch["tokens"].to(torch.int64)]
+    if cfg.pos == "learned":
+        x = x + model.pos_embed[:x.shape[1]][None]
+    return x
+
+
+def _image_context(model: Transformer, batch: dict,
+                   cfg: ModelConfig) -> torch.Tensor | None:
+    if "C" not in cfg.layer_pattern or "image_embeds" not in batch:
+        return None
+    return batch["image_embeds"].to(cfg.dtype) @ model.frontend_proj
+
+
+def _ffn(blk: Block, h: torch.Tensor, cfg: ModelConfig):
+    """(y, MoE aux loss) of a layer's FFN on the training path."""
+    if isinstance(blk.ffn, moe.MoE):
+        return moe.moe_ffn_train(blk.ffn, h, cfg=cfg)
+    return (common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h, act=cfg.act),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _layer_fwd(blk: Block, x: torch.Tensor, kind: str, *, cfg: ModelConfig,
+               mode: str, att: dict, img: torch.Tensor | None):
+    h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
+    if kind == "M":
+        mix, _ = ssm.ssm_forward(blk.mixer, h, cfg=cfg)
+    else:
+        mix = AB.attn_forward(blk.mixer, h, cfg=cfg, mode=mode, att=att,
+                              x_kv=img if kind == "C" else None,
+                              cross=kind == "C")
+    x = x + mix
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff > 0:
+        y, aux = _ffn(blk, common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps),
+                      cfg)
+        x = x + y
+    return x, aux
+
+
+def _run_layers(cfg: ModelConfig, layer_fn, carry: tuple) -> tuple:
+    """carry = layer_fn(layer, *carry) over every layer, group by group.
+    With cfg.remat (and gradients on), each group runs under a checkpoint,
+    and so does each layer of a group of more than one (JAX's nested
+    jax.checkpoint)."""
+    span = cfg.group_size
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def group(g, *carry):
+        for i in range(span):
+            if remat and span > 1:
+                carry = checkpoint(layer_fn, g * span + i, *carry,
+                                   use_reentrant=False)
+            else:
+                carry = layer_fn(g * span + i, *carry)
+        return carry
+
+    for g in range(cfg.n_groups):
+        carry = (checkpoint(group, g, *carry, use_reentrant=False) if remat
+                 else group(g, *carry))
+    return carry
+
+
+class ForwardOut(NamedTuple):
+    logits: torch.Tensor
+    moe_aux: torch.Tensor
+
+
+def _final(model: Transformer, x: torch.Tensor, cfg: ModelConfig):
+    return common.rmsnorm(model.final_norm.w, x, eps=cfg.norm_eps)
+
+
+def _unembed(model: Transformer, h: torch.Tensor, cfg: ModelConfig):
+    return common.unembed(
+        h, model.embed.T if cfg.tie_embeddings else model.lm_head)
+
+
+def _head(model: Transformer, x: torch.Tensor, cfg: ModelConfig):
+    return _unembed(model, _final(model, x, cfg), cfg)
+
+
+def forward(model: Transformer, batch: dict, *, cfg: ModelConfig,
+            mode: str = "std", att: dict | None = None) -> ForwardOut:
+    """Full forward: logits [B, S, padded_vocab] float32 and the mean MoE
+    aux loss over layers. mode: std | fp_topn | had_train | had_eval |
+    sab_train | sab_eval (see attention_block.attn_forward). batch holds
+    `tokens` [B, S] or `frames` [B, S, frontend_dim], and `image_embeds`
+    for cross layers."""
+    att = dict(att or {})
+    kinds = layer_kinds(cfg)
+    img = _image_context(model, batch, cfg)
+
+    def layer(i, x, acc):
+        x, aux = _layer_fwd(model.blocks[i], x, kinds[i], cfg=cfg,
+                            mode=mode, att=att, img=img)
+        return x, acc + aux
+
+    x, acc = _run_layers(cfg, layer, (
+        _embed_inputs(model, batch, cfg),
+        torch.zeros((), dtype=torch.float32, device=model.embed.device)))
+    return ForwardOut(_head(model, x, cfg), acc / max(cfg.n_layers, 1))
+
+
+class DistillOut(NamedTuple):
+    teacher_logits: torch.Tensor
+    student_logits: torch.Tensor
+    attention_kl: torch.Tensor     # Eq. 9 mean over all rows and maps
+    moe_aux: torch.Tensor
+
+
+def forward_distill(teacher: Transformer, student: Transformer, batch: dict,
+                    *, cfg: ModelConfig, att: dict) -> DistillOut:
+    """Combined teacher / student forward for the distillation step: the
+    teacher through the standard path, the student through the
+    stage-scheduled binarized path; the Eq. 9 KL accumulates over every
+    attention map of every layer ('A' and 'C')."""
+    ht, hs, kl, aux = distill_hidden(teacher, student, batch, cfg=cfg,
+                                     att=att)
+    return DistillOut(_unembed(teacher, ht, cfg), _unembed(student, hs, cfg),
+                      kl, aux)
+
+
+# output_kl_from_hidden's rows per block: about 2**24 logits (64 MB in
+# float32)
+KL_BLOCK_LOGITS = 1 << 24
+
+
+def output_kl_from_hidden(teacher: Transformer, student: Transformer,
+                          ht: torch.Tensor, hs: torch.Tensor, *,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Eq. 10 (`losses.output_kl` with the padded vocabulary masked) on
+    the logits of the final hidden rows ht / hs [..., D] through each
+    model's head, a block of about KL_BLOCK_LOGITS logits at a time under
+    a checkpoint: the [rows, vocab] logits never exist in full (a
+    full-vocabulary LM's take 1.6 GB a model at 8192 positions, and their
+    gradient as much again). Each row's KL is the unblocked one's."""
+    d = ht.shape[-1]
+    t2, s2 = ht.reshape(-1, d), hs.reshape(-1, d)
+    rows = max(1, KL_BLOCK_LOGITS // cfg.padded_vocab)
+    mask = (None if cfg.vocab_size == cfg.padded_vocab else
+            torch.arange(cfg.padded_vocab, device=ht.device)
+            < cfg.vocab_size)
+
+    def block(t, s):
+        lt, ls = _unembed(teacher, t, cfg), _unembed(student, s, cfg)
+        return losses.kl_divergence(
+            lt, ls, mask=None if mask is None else torch.broadcast_to(
+                mask, lt.shape))
+
+    per = [checkpoint(block, t2[i:i + rows], s2[i:i + rows],
+                      use_reentrant=False) if torch.is_grad_enabled()
+           else block(t2[i:i + rows], s2[i:i + rows])
+           for i in range(0, t2.shape[0], rows)]
+    return torch.cat(per).mean()
+
+
+def distill_hidden(teacher: Transformer, student: Transformer, batch: dict,
+                   *, cfg: ModelConfig, att: dict):
+    """`forward_distill` up to the heads: (teacher and student final-normed
+    hidden states [B, S, D], the attention KL, the mean MoE aux)."""
+    att = dict(att)
+    kinds = layer_kinds(cfg)
+    img_t = _image_context(teacher, batch, cfg)
+    img_s = _image_context(student, batch, cfg)
+
+    def layer(i, xt, xs, kl, rows, acc):
+        bt, bs, kind = teacher.blocks[i], student.blocks[i], kinds[i]
+        ht = common.rmsnorm(bt.norm1.w, xt, eps=cfg.norm_eps)
+        hs = common.rmsnorm(bs.norm1.w, xs, eps=cfg.norm_eps)
+        if kind == "M":
+            xt = xt + ssm.ssm_forward(bt.mixer, ht, cfg=cfg)[0]
+            xs = xs + ssm.ssm_forward(bs.mixer, hs, cfg=cfg)[0]
+        else:
+            cross = kind == "C"
+            yt, ys, kl_i, rows_i = AB.attn_forward_distill(
+                bt.mixer, bs.mixer, ht, hs, cfg=cfg, att=att,
+                xt_kv=img_t if cross else None,
+                xs_kv=img_s if cross else None, cross=cross)
+            xt, xs = xt + yt, xs + ys
+            kl, rows = kl + kl_i, rows + rows_i
+        if cfg.d_ff > 0:
+            ft, _ = _ffn(bt, common.rmsnorm(bt.norm2.w, xt,
+                                            eps=cfg.norm_eps), cfg)
+            fs, m = _ffn(bs, common.rmsnorm(bs.norm2.w, xs,
+                                            eps=cfg.norm_eps), cfg)
+            xt, xs, acc = xt + ft, xs + fs, acc + m
+        return xt, xs, kl, rows, acc
+
+    zero = torch.zeros((), dtype=torch.float32, device=teacher.embed.device)
+    xt, xs, kl, rows, acc = _run_layers(cfg, layer, (
+        _embed_inputs(teacher, batch, cfg), _embed_inputs(student, batch, cfg),
+        zero, zero, zero))
+    return (_final(teacher, xt, cfg), _final(student, xs, cfg),
+            kl / rows.clamp_min(1.0), acc / max(cfg.n_layers, 1))
 
 
 def init_caches(cfg: ModelConfig, *, paged: bool, batch: int = 0,
@@ -284,7 +571,9 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                state_tables: torch.Tensor | None = None,
                image_embeds: torch.Tensor | None = None,
                zero_fresh: bool = True,
-               logits_mode: str = "all") -> torch.Tensor:
+               logits_mode: str = "all",
+               frames: torch.Tensor | None = None,
+               frames_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Prefill (tokens [B, S>1]) or decode (tokens [B, 1]) against the
     caches, which are updated in place.
 
@@ -309,6 +598,11 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     a caller that zeroes those rows itself before the step (the serving
     runner, outside its captured graphs). A decode step never writes a
     cross cache.
+
+    frames [B, S, frontend_dim] embeds a prefill chunk through
+    ``frontend_proj`` instead of the token table (JAX ``_embed_inputs``),
+    in the rows `frames_rows` [B] bool (default: every row). Learned
+    positions add ``pos_embed[:S]``, as the JAX step does.
 
     logits_mode="last" returns each row's logits at its last valid
     position only. Returns float32 logits [B, S or 1, padded_vocab].
@@ -335,6 +629,12 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     # every active cross row is filled when images ride along
     zero = fresh if image_embeds is None else None
     x = model.embed[tokens.to(torch.int64)]                # [B, S, D]
+    if frames is not None:
+        fx = frames.to(cfg.dtype) @ model.frontend_proj
+        x = fx if frames_rows is None else torch.where(
+            frames_rows[:, None, None], fx, x)
+    if cfg.pos == "learned":
+        x = x + model.pos_embed[:s][None]
     for kind, blk, cache in zip(layer_kinds(cfg), model.blocks, caches):
         h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
         if kind == "M":

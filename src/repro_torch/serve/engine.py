@@ -19,11 +19,13 @@ swap-out preemption, `swap_pages`, `prefix_cache` and page-sparse decode,
 pipelined, or from asyncio (`serve/async_engine.py`), for decoders with
 self-attention, cross-attention and SSM (Mamba2) layers and dense or MoE
 FFNs: a request's image embeddings ride in
-`submit(..., extra={"image_embeds": [1, T_img, frontend_dim]})`, and a
-paged engine keeps the cross caches and the SSM state in a pooled state
-allocation (`statepool`). Tensor-parallel serving, encoders and
-frames-frontend models raise NotImplementedError when the engine builds
-its runner; see ROADMAP.md.
+`submit(..., extra={"image_embeds": [1, T_img, frontend_dim]})`, its
+prompt frames (a model with a frontend) in `extra={"frames": [1, S,
+frontend_dim]}`, and a paged engine keeps the cross caches and the SSM
+state in a pooled state allocation (`statepool`). An encoder is refused
+(ValueError: encoder-only, no decode loop), and tensor-parallel serving
+raises NotImplementedError, when the engine builds its runner; see
+ROADMAP.md.
 The engine runs on the card unless the caller asks for the CPU, each step
 as a CUDA graph replay unless it asks for the eager step (`eager=True`).
 

@@ -74,20 +74,23 @@ from repro_torch.serve.validate import (STATE_LAYER_CHARS,
 
 
 def resolve_device(device) -> torch.device:
-    """The device to serve on; "cuda" without a card raises (no fallback)."""
+    """The device to serve or train on; "cuda" without a card raises (no
+    fallback)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available: repro_torch serves on the GPU by "
+            "no CUDA device is available: repro_torch runs on the GPU by "
             "default; pass device='cpu' (CLI: --device cpu) to run the "
             "kernels' plain versions on the CPU")
     return dev
 
 
 def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for anything
-    this slice of the port does not serve."""
-    T.check_supported(cfg)
+    """Refuse an encoder (ValueError, the JAX launcher's reason: it has no
+    decode loop), and raise NotImplementedError, naming the ROADMAP item,
+    for a feature the port does not serve yet."""
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name} is encoder-only — no decode loop")
     if scfg.mesh is not None:
         raise NotImplementedError(
             "repro_torch does not serve tensor-parallel serving (mesh) yet: "
@@ -269,10 +272,17 @@ class ModelRunner:
                   if scfg.paged else {})
         if self._state_layers:
             tables["state"] = (b,)
+        # a model with a frontend embeds `frames` prefill chunks through
+        # it: the rows' frames land in this static buffer, and the
+        # prefill inputs' `frames` row flags pick them over the tokens
+        self._frames = (torch.zeros((b, self.chunk, cfg.frontend_dim),
+                                    dtype=cfg.dtype, device=self.device)
+                        if cfg.frontend_dim else None)
+        frames = {"frames": (b,)} if cfg.frontend_dim else {}
         self._inputs = {
             "prefill": _StepInputs(dict(tokens=(b, self.chunk), pos=(b,),
-                                        active=(b,), n_valid=(b,), **tables),
-                                   self.device),
+                                        active=(b,), n_valid=(b,), **tables,
+                                        **frames), self.device),
             "decode": _StepInputs(dict(tokens=(b, 1), pos=(b,), active=(b,),
                                        **tables), self.device)}
         self._graphs: dict[str, _Graph] = {}
@@ -335,13 +345,16 @@ class ModelRunner:
     def _forward(self, kind: str) -> torch.Tensor:
         """serve_step on the static inputs of `kind`; logits [B, 1, V]."""
         v = self._inputs[kind].views
+        frames = "frames" in v
         return T.serve_step(
             self.model, v["tokens"], self.caches, pos=v["pos"], n=self.n,
             block_tables=v.get("tables"), active=v["active"] != 0,
             n_valid=v.get("n_valid"),
             page_topn=self.scfg.page_topn if kind == "decode" else None,
             binary=self.scfg.binary, state_tables=v.get("state"),
-            zero_fresh=False, logits_mode="last")
+            zero_fresh=False, logits_mode="last",
+            frames=self._frames if frames else None,
+            frames_rows=v["frames"] != 0 if frames else None)
 
     def _capture(self, kind: str) -> _Graph:
         """A kind's first use: one warm-up run (on a side stream, as
@@ -444,19 +457,28 @@ class ModelRunner:
         per slot in `rows` (default: every slot, [B, ...]). Before the
         replay, fresh slots' SSM state is zeroed, and image embeddings
         fill their active slots' cross caches and the other fresh slots'
-        are zeroed (`_write_state`). Returns last-valid logits [B, 1, V],
-        valid until the next step."""
+        are zeroed (`_write_state`). `frames` ([len(rows), chunk,
+        frontend_dim]) go to the static frames buffer, and those rows are
+        embedded through ``frontend_proj`` instead of the token table.
+        Returns last-valid logits [B, 1, V], valid until the next step."""
         extra = extra or {}
-        if "frames" in extra:
-            raise NotImplementedError(
-                "frames frontends are not ported yet: see ROADMAP.md queue "
-                "1, 'Still to port', item 1")
         arrays = self._tables(block_tables, state_tables)
+        rows = (np.arange(self.scfg.batch_slots) if rows is None
+                else np.asarray(rows))
+        if self._frames is not None:
+            flags = np.zeros((self.scfg.batch_slots,), np.int32)
+            if "frames" in extra:
+                flags[rows] = 1
+                self._frames[torch.from_numpy(rows).to(self.device)] = \
+                    torch.from_numpy(np.asarray(extra["frames"], np.float32)
+                                     ).to(self.device, self.cfg.dtype)
+            arrays["frames"] = flags
+        elif "frames" in extra:
+            raise ValueError(f"{self.cfg.name} has no frontend "
+                             f"(frontend_dim 0) to embed frames")
         if self._ssm_layers or self._cross_layers:  # else images are ignored
-            self._write_state(
-                extra.get("image_embeds"),
-                np.arange(self.scfg.batch_slots) if rows is None
-                else np.asarray(rows), pos, active, arrays.get("state"))
+            self._write_state(extra.get("image_embeds"), rows, pos, active,
+                              arrays.get("state"))
         logits = self._step("prefill", tokens=tokens, pos=pos, active=active,
                             n_valid=n_valid, **arrays)
         self.stats["prefill_chunks"] += 1

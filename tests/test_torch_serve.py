@@ -462,7 +462,6 @@ def test_ssm_and_moe_layer_patterns_build_from_jax(arch):
     leaf. Their serving parity is pinned in test_torch_ssm_moe.py."""
     jcfg = jget_config(arch, reduced=True)
     cfg = get_config(arch, reduced=True)
-    T.check_supported(cfg)
     tree = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(3),
                                                    jcfg))
     model = params_from_numpy(tree, cfg)
@@ -486,12 +485,46 @@ def test_ssm_and_moe_layer_patterns_build_from_jax(arch):
 @pytest.mark.parametrize("arch", ["bert-base-had", "hubert-xlarge",
                                   "deit-t"])
 def test_unported_layer_patterns_raise(arch):
-    """Encoders (learned positions, bidirectional attention; hubert's
-    frames frontend) are not ported: building the model raises, naming
-    the ROADMAP item."""
+    """The encoders, once refused here (learned positions, bidirectional
+    attention; hubert's and deit's frames frontend), are ported: the model
+    builds, and its std and had_eval forwards equal JAX's logits on the
+    same weights (LOGIT_TOL). The Engine refuses them with the JAX
+    launcher's reason (`test_engine_refuses_encoders`)."""
+    jcfg, cfg = jget_config(arch, reduced=True), get_config(arch, reduced=True)
+    pj = JM.init_params(jax.random.PRNGKey(2), jcfg)
+    model = params_from_numpy(jax.tree.map(np.asarray, pj), cfg)
+    assert model.pos_embed is not None and not cfg.causal
+    rng = np.random.default_rng(3)
+    if cfg.frontend_dim:
+        batch = {"frames": rng.standard_normal(
+            (2, 24, cfg.frontend_dim)).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24)
+                                        ).astype(np.int32)}
+    for mode in ("std", "had_eval"):
+        want = JM.forward(pj, {k: jnp.asarray(v) for k, v in batch.items()},
+                          cfg=jcfg, mode=mode, att={"n": 6})
+        with torch.no_grad():
+            got = T.forward(model, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()},
+                            cfg=cfg, mode=mode, att={"n": 6})
+        np.testing.assert_allclose(got.logits.numpy(),
+                                   np.asarray(want.logits), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["bert-base-had", "hubert-xlarge",
+                                  "deit-t"])
+def test_engine_refuses_encoders(arch):
+    """An encoder has no decode loop: the Engine refuses it with the JAX
+    launcher's reason, and so does the port's launcher."""
+    from repro_torch.launch import serve as launch
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        T.Transformer(cfg)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="encoder-only — no decode loop"):
+        Engine(cfg, model, ServeConfig(max_len=32, batch_slots=1),
+               device="cpu")
+    with pytest.raises(SystemExit, match="encoder-only — no decode loop"):
+        launch.main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [[], ["--paged"], ["--page-topn", "1"],
@@ -541,8 +574,17 @@ def test_port_imports_no_jax():
         "             ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    code += (
+        "need = ['repro_torch.core.binarize', 'repro_torch.core.losses',\n"
+        "        'repro_torch.core.distill', 'repro_torch.optim.adam',\n"
+        "        'repro_torch.optim.schedules', 'repro_torch.data.synthetic',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.train.steps',\n"
+        "        'repro_torch.train.loop', 'repro_torch.checkpoint.manager',\n"
+        "        'repro_torch.distributed.compression',\n"
+        "        'repro_torch.models.model', 'repro_torch.launch.train']\n"
+        "assert all(m in sys.modules for m in need), need\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    assert int(res.stdout.strip().splitlines()[0]) >= 20

@@ -490,16 +490,27 @@ def test_sync_pipelined_and_async_tokens_equal_with_extra():
 
 
 def test_vision_refusals_stay_pinned():
-    """Requests with sequence-aligned `frames` are not ported: they raise
-    when their chunk runs, naming the ROADMAP item."""
+    """Requests with sequence-aligned `frames`, once refused here, are
+    served: a 13-position frames prompt (two chunks) with an image, on the
+    paged (pooled cross state) and the dense engine, gives the same tokens
+    on both, other tokens than its placeholder token ids alone, and 2
+    step graphs. (test_torch_frames.py holds frames on this model against
+    the JAX Engine.)"""
     _, tcfg = _cfgs()
-    eng = Engine(tcfg, _model(), _scfg(ServeConfig, 1), device="cpu")
-    prompt = np.arange(6, dtype=np.int32)
-    eng.submit(prompt, max_new_tokens=2,
-               extra={"frames": np.zeros((1, 6, tcfg.frontend_dim),
-                                         np.float32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run()
+    prompt = np.arange(13, dtype=np.int32)
+    frames = np.random.default_rng(2).normal(
+        size=(1, 13, tcfg.frontend_dim)).astype(np.float32)
+    reqs = [(prompt, {"frames": frames, "image_embeds": _image(3)}),
+            (prompt, {"image_embeds": _image(3)})]
+    got = {}
+    for name, kw in (("paged", {}), ("dense", dict(paged=False))):
+        eng = Engine(tcfg, _model(), _scfg(ServeConfig, 2, **kw),
+                     device="cpu")
+        got[name] = _serve(eng, reqs)
+        assert eng.runner.graph_count() == 2
+    for a, b in zip(got["paged"], got["dense"]):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(got["paged"][0], got["paged"][1])
 
 
 # ---------------------------------------------------------------------------
