@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs nine phases; any failure exits non-zero before the result line.
+runs ten phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -141,6 +141,27 @@ runs nine phases; any failure exits non-zero before the result line.
    launch rule with 2 graphs (4 requests), its tokens equal to an engine
    over the student rebuilt from its saved checkpoint.
 
+10. The paper's long-context shapes, after phase 9: K1 at smollm-135m's
+   prefill_32k shape at the dry-run cell's batch 4 (36 query rows over
+   12 kv rows, S = 32768 over the 32769-position dense cache, N 3834),
+   one call in 36 waves within K1's 2 GiB scratch budget, held against
+   the plain version window by window (512 queries each, phase 2's
+   tolerances); K4 at decode_32k (384 rows x 32769 positions) and
+   long_500k (3 rows x 524289, also at ragged lengths) against the plain
+   version; each a kernel record whose bound counts this run's kept
+   keys. Then the one-card dry run
+   (`repro_torch.launch.dryrun.run_cell`) of smollm-135m's four cells on
+   the card: decode_32k at batch 128 and long_500k at 1 (the fit rule's
+   batches), prefill_32k and train_4k cut to batch 4 and 2 for time
+   (`DRYRUN_BATCH`, each cut printed), every cell "ok" with a finite
+   output, its peak memory, step time, roofline terms, mfu and
+   hbm_share, and K4 (decode) launched 2 x 30 times in it (the counted
+   and the timed step), K1 (prefill) 2 x 30 x its 36 waves a call
+   (these are the three records' launches); the meta records of the ten
+   assigned archs (none an error, the three largest fitting no cell);
+   and the counted flops and bytes of a reduced binary serve step, equal
+   on the CPU and the card.
+
 `--profile DIR` profiles the prefill of one 3072-token prompt and decode
 windows of the paged, the dense, the full-precision paged and the
 page_topn-64 engine (the last unfused and fused in turn), all graphed,
@@ -164,11 +185,16 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
-HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12        # float32 outside the tensor cores
-BF16_TENSOR_OPS_PER_S = 989e12
-INT8_TENSOR_OPS_PER_S = 1979e12
+try:    # H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
+    from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import \
+        PEAK_FLOPS as BF16_TENSOR_OPS_PER_S
+    from repro_torch.launch.roofline import \
+        PEAK_FP32_FLOPS as CUDA_CORE_OPS_PER_S   # outside the tensor cores
+    from repro_torch.launch.roofline import \
+        PEAK_INT8_OPS as INT8_TENSOR_OPS_PER_S
+except ImportError:     # no checkout (or no torch) here: main() says which
+    pass
 TOL = dict(atol=1e-5, rtol=1e-4)
 K5_INT8 = "hamming_score_int8"     # K5's int8 method's own record
 CROSS_TOL = dict(atol=2e-3, rtol=2e-3)
@@ -785,7 +811,7 @@ DBRX_SHAPES = dict(h=48, hk=8, tag="dbrx", names=dict(
     k1=K1_DBRX, k2=K2_DBRX, k3=K3_DBRX, k4=K4_DBRX))
 
 
-def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal):
+def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal, window=None):
     """(bytes, ops) the prefill function needs for these inputs, from
     their shapes: q [BH, S, W], k [BHk, T, W], V width dv, per-row
     kv_length / q_offset / q_length. Bytes: the live queries' words, the
@@ -793,24 +819,35 @@ def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal):
     the float32 output. Operations: the scores of the valid pairs on the
     CUDA cores, E.V of the kept pairs and their sum(E) (a column of ones)
     on the bf16 tensor cores, three bf16 products a multiply-add (E as
-    e0 + e1 + e2)."""
+    e0 + e1 + e2). The pairs are counted `window` queries at a time
+    (default all S; a long call's score matrix does not fit at once):
+    valid and kept pairs summed, the keys any window uses OR-ed."""
     import torch
     from repro_torch.core import hamming, topn
+    from repro_torch.kernels import binary_prefill_attention as pre
     bh, s, w = q.shape
     bhk, t, _ = k.shape
-    g = bh // bhk
-    sc = hamming.binary_scores(q, torch.repeat_interleave(k, g, dim=0), d)
-    qi = torch.arange(s, device="cuda")[None, :, None]
-    kp = torch.arange(t, device="cuda")[None, None, :]
-    valid = (kp < kvl[:, None, None]) & (qi < qlen[:, None, None])
-    if causal:
-        valid = valid & (kp <= qoff[:, None, None] + qi)
-    keep = topn.topn_mask_binary(sc, nsel, d, valid=valid)
-    kv_keys = valid.reshape(bhk, g * s, t).any(1).sum().item()
-    v_keys = keep.reshape(bhk, g * s, t).any(1).sum().item()
-    n_valid, n_kept = valid.sum().item(), keep.sum().item()
-    nbytes = (qlen.sum().item() * w * 4 + kv_keys * w * 4 + v_keys * dv * 2
-              + bh * s * dv * 4 + 3 * bh * 4)
+    g, window = bh // bhk, window or s
+    kv_any = torch.zeros((bhk, t), dtype=torch.bool, device="cuda")
+    v_any = torch.zeros_like(kv_any)
+    n_valid = n_kept = 0
+    for s0 in range(0, s, window):
+        qw, kw, _, kvlw, qo, ql = pre.wave_inputs(
+            q, k, k, kvl, qoff, qlen, g, 0, bh, s0, min(s, s0 + window))
+        sc = hamming.binary_scores(qw, torch.repeat_interleave(kw, g, 0), d)
+        qi = torch.arange(qw.shape[1], device="cuda")[None, :, None]
+        kp = torch.arange(t, device="cuda")[None, None, :]
+        valid = (kp < kvlw[:, None, None]) & (qi < ql[:, None, None])
+        if causal:
+            valid = valid & (kp <= qo[:, None, None] + qi)
+        keep = topn.topn_mask_binary(sc, nsel, d, valid=valid)
+        kv_any |= valid.reshape(bhk, -1, t).any(1)
+        v_any |= keep.reshape(bhk, -1, t).any(1)
+        n_valid += valid.sum().item()
+        n_kept += keep.sum().item()
+        del sc, valid, keep
+    nbytes = (qlen.sum().item() * w * 4 + kv_any.sum().item() * w * 4
+              + v_any.sum().item() * dv * 2 + bh * s * dv * 4 + 3 * bh * 4)
     return nbytes, [(n_valid * (2 * w + 2), CUDA_CORE_OPS_PER_S),
                     (3 * n_kept * 2 * (dv + 1), BF16_TENSOR_OPS_PER_S)]
 
@@ -2665,6 +2702,252 @@ def phase9() -> None:
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the long-context kernels and the one-card dry run
+# ---------------------------------------------------------------------------
+
+SMOLLM = "smollm-135m"
+# phase 10's records: K1 and K4 at smollm-135m's dry-run shapes
+K1_32K = "binary_prefill_attention[smollm prefill_32k]"
+K4_32K = "binary_decode_attention[smollm decode_32k]"
+K4_512K = "binary_decode_attention[smollm long_500k]"
+# the dry run's batch cuts, for time (the fit rule gives 256 and 32): a
+# distill step at seq 4096 takes seconds a microbatch of 2, and K1 grows
+# with S^2 a row
+DRYRUN_BATCH = {"train_4k": 2, "prefill_32k": 4}
+LONG_WINDOW = 512           # queries a plain-version window at 32k
+
+
+def _k1_32k_plan(batch: int):
+    """K1's plan for smollm-135m's prefill_32k serve step at `batch`: the
+    step's one call a layer, S = 32768 queries of batch x 9 rows over the
+    32769-position dense cache (its trash position), 3 rows a GQA group."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_prefill_attention as pre
+    cfg = get_config(SMOLLM)
+    h, dh = batch * cfg.n_heads, cfg.dh
+    return pre.split_plan((h, 32768, dh // 32), 32769, dh, dh,
+                          group_size=cfg.n_heads // cfg.n_kv_heads)
+
+
+def phase10_k1(gen) -> dict:
+    """K1 at smollm-135m's prefill_32k shape as the dry-run cell runs it
+    (DRYRUN_BATCH's batch 4: 36 query rows over 12 kv rows, S = 32768
+    over the 32769-position dense cache, causal from position 0, N =
+    topn(32768)). One call runs in waves (its one-launch scratch would
+    be 59 GiB); its output is held against the plain version window by
+    window (LONG_WINDOW queries, the plain version's inputs those of
+    `wave_inputs`), at phase 2's TOL. The plain version's time is that of
+    all its windows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ref
+    cfg = get_config(SMOLLM)
+    batch = DRYRUN_BATCH["prefill_32k"]
+    h, hk, dh = batch * cfg.n_heads, batch * cfg.n_kv_heads, cfg.dh
+    g, s, t = h // hk, 32768, 32769
+    nsel = cfg.had.topn(s)
+    q = _bits((h, s, dh), gen)
+    k = _bits((hk, t, dh), gen)
+    v = torch.randn((hk, t, dh), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    zero = torch.zeros(h, dtype=torch.int32, device="cuda")
+    full = torch.full((h,), s, dtype=torch.int32, device="cuda")
+    kw = dict(d=dh, nsel=nsel, scale=SCALE, causal=True)
+    plan = _k1_32k_plan(batch)
+    n_waves = len(list(pre.waves(plan, h, s)))
+    check(n_waves > 1 and plan.scratch_words <= pre.SCRATCH_WORDS,
+          f"K1 32k waves {plan}")
+
+    def k1():
+        return pre.prefill_attention(q, k, v, kv_length=full, q_offset=zero,
+                                     q_length=full, group_size=g,
+                                     n_kv_heads=cfg.n_kv_heads, **kw)
+    got = k1()
+    torch.cuda.synchronize()
+    err = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    plain_ms = 0.0
+    for s0 in range(0, s, LONG_WINDOW):
+        s1 = s0 + LONG_WINDOW
+        qw, kw_, vw, kvl, qo, ql = pre.wave_inputs(q, k, v, full, zero, full,
+                                                   g, 0, h, s0, s1)
+        start.record()
+        want = ref.prefill_attention_ref(qw, kw_, vw, kv_length=kvl,
+                                         q_offset=qo, q_length=ql,
+                                         group_size=g, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        torch.testing.assert_close(got[:, s0:s1], want, **TOL)
+        err = max(err, (got[:, s0:s1] - want).abs().max().item())
+        del want
+    log(f"phase 10: {K1_32K}: batch {batch}, {h} rows, {n_waves} waves of "
+        f"{plan.wave_rows} rows x {plan.wave_qtiles} query tiles, scratch "
+        f"{plan.scratch_words * 4 / 2**30:.3f} GiB; max_abs_err {err:.3e} "
+        f"over {s // LONG_WINDOW} windows")
+    ms = cuda_ms(k1, iters=3, warmup=1)
+    work = _k1_work(q, k, dh, full, zero, full, d=dh, nsel=nsel,
+                    causal=True, window=LONG_WINDOW)
+    rec = _record(pre, "src/repro/kernels/binary_prefill_attention.py:106",
+                  err, ms, plain_ms, work, host_us(k1, calls=2), name=K1_32K)
+    rec["waves"] = n_waves
+    return {K1_32K: rec}
+
+
+def phase10_k4(gen) -> dict:
+    """K4 at smollm-135m's decode cells: decode_32k (batch 128: 384 rows of
+    3 grouped queries over the 32769-position cache, every row at 32768
+    valid keys, as the dry run's step at pos 32767) and long_500k (3 rows
+    over 524289 positions), against the plain version at phase 2's TOL;
+    long_500k also at ragged lengths (300001, 1)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import ref
+    cfg = get_config(SMOLLM)
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    g = h // hk
+    records = {}
+    for name, batch, seq in ((K4_32K, 128, 32768), (K4_512K, 1, 524288)):
+        r, t = batch * hk, seq + 1
+        nsel = cfg.had.topn(seq)
+        q = _bits((r, g, dh), gen)
+        k = _bits((r, t, dh), gen)
+        planes = k.transpose(-1, -2).contiguous()
+        v = torch.randn((r, t, dh), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        lens = torch.full((r,), seq, dtype=torch.int32, device="cuda")
+        kw = dict(d=dh, nsel=nsel, scale=SCALE)
+        err = 0.0
+        cases = [lens] + ([torch.tensor([seq, 300001, 1], dtype=torch.int32,
+                                        device="cuda")] if batch == 1 else [])
+        for ln in cases:
+            got = dec.decode_attention(q, planes, v, ln, **kw)
+            want = ref.decode_attention_ref(q, k, v, lengths=ln, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            err = max(err, (got - want).abs().max().item())
+            log(f"phase 10: {name} T {t} lengths {ln[:3].tolist()} "
+                f"max_abs_err {(got - want).abs().max().item():.3e}")
+            del got, want
+
+        def k4():
+            return dec.decode_attention(q, planes, v, lens, **kw)
+        ms = cuda_ms(k4, iters=20)
+        plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
+            q, k, v, lengths=lens, **kw), iters=2, warmup=1)
+        work = _decode_rows_work(q, k, lens, r * 4, d=dh, nsel=nsel, dv=dh)
+        records[name] = _record(
+            dec, "src/repro/kernels/binary_decode_attention.py:122", err,
+            ms, plain_ms, work, host_us(k4), name=name)
+        del q, k, planes, v
+        _free()
+    return records
+
+
+def phase10_dryrun() -> dict:
+    """smollm-135m's four dry-run cells on the card (`launch.dryrun.
+    run_cell`: weights drawn on the card, a counted step, then a timed
+    one), decode_32k and long_500k at the fit rule's batch (128, 1), the
+    others at DRYRUN_BATCH (each cut printed); every cell "ok" with its
+    peak memory, step time, roofline terms, mfu and hbm_share, and the
+    kernel of its path launched in both steps (the counted and the timed
+    one) in each of the 30 layers: K4 once a call by the decode cells,
+    K1 once a wave by prefill_32k (`_k1_32k_plan`'s waves a call), read
+    from the wrappers' counters zeroed just before the cell. Then the
+    meta records of the ten assigned archs: none an error, and the three
+    largest fit no cell."""
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    layers, heads = get_config(SMOLLM).n_layers, get_config(SMOLLM).n_heads
+    path = {"prefill_32k": (pre.NAME, K1_32K), "decode_32k": (dec.NAME,
+                                                              K4_32K),
+            "long_500k": (dec.NAME, K4_512K), "train_4k": (None, None)}
+    counts = {}
+    for shape in M.SHAPES:
+        batch = DRYRUN_BATCH.get(shape)
+        if batch:
+            fit, _ = D.fit_batch(get_config(SMOLLM), M.SHAPES[shape])
+            log(f"phase 10: dry run {SMOLLM} {shape} cut to batch {batch} "
+                f"(the fit rule gives {fit})")
+        ops.reset_launch_counts()
+        rec = D.run_cell(SMOLLM, shape, batch=batch)
+        launched = ops.launch_counts()
+        log(f"phase 10: {D.summary(rec)}")
+        log(json.dumps({k: rec[k] for k in rec if k != "trace"}))
+        check(rec["status"] == "ok", (shape, rec.get("trace")))
+        kernel, record = path[shape]
+        want = {n: 0 for n in launched}
+        if kernel:
+            want[kernel] = 2 * layers
+            if kernel == pre.NAME:
+                want[kernel] *= len(list(pre.waves(
+                    _k1_32k_plan(batch), batch * heads, 32768)))
+            counts[record] = launched[kernel]
+        check(launched == want, (shape, launched, want))
+        check(rec["step_s"] > 0 and rec["mfu"] > 0 and rec["hbm_share"] > 0
+              and rec["memory"]["peak_memory_in_bytes"] > 0, rec)
+        _free()
+    for arch in ASSIGNED:
+        for shape in M.SHAPES:
+            rec = D.run_cell(arch, shape, device="meta")
+            log(f"phase 10: {D.summary(rec)}")
+            check(rec["status"] != "error", rec.get("trace"))
+            if arch in ("kimi-k2-1t-a32b", JAMBA, DBRX):
+                check(rec["status"] == "does_not_fit", rec)
+    return counts
+
+
+def phase10_counts_cpu_vs_card() -> None:
+    """The counted flops and bytes of a reduced binary serve step (smollm
+    widths cut to the reduced config, float32: a dense prefill of 24
+    tokens, then a decode step) are equal on the CPU (plain versions) and
+    on the card (kernels), and so are the kernels' reported calls."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.models import transformer as T
+    cfg = get_config(SMOLLM, reduced=True)
+    cpu_model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 25),
+                           generator=torch.Generator().manual_seed(1))
+    costs = {}
+    for dev in ("cpu", "cuda"):
+        model = cpu_model.to(dev)
+        caches = T.init_caches(cfg, paged=False, batch=2, max_len=40,
+                               device=dev)
+        tok = tokens.to(dev)
+        with op_cost.Counter() as c:
+            for t0, t1 in ((0, 24), (24, 25)):
+                T.serve_step(model, tok[:, t0:t1], caches,
+                             pos=torch.full((2,), t0, dtype=torch.int32,
+                                            device=dev),
+                             n=cfg.had.topn(40), logits_mode="last")
+        costs[dev] = (c.cost.flops, c.cost.bytes, c.kernel_calls)
+    log(f"phase 10: counted reduced serve step: cpu {costs['cpu']}, "
+        f"card {costs['cuda']}")
+    check(costs["cpu"] == costs["cuda"], costs)
+
+
+def phase10(records: dict, counts: dict) -> None:
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    records.update(phase10_k1(gen))
+    _free()
+    records.update(phase10_k4(gen))
+    counts.update(phase10_dryrun())
+    phase10_counts_cpu_vs_card()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def profile_decode(eng, name: str, out_dir: str, prompt_len: int) -> None:
     """Device time by group in a decode window of a full-size engine: 4
     slots filled with `prompt_len`-token prompts, then 8 decode steps run
@@ -2997,6 +3280,8 @@ def main() -> int:
         del engine
         _free()
         phase9()
+        _free()
+        phase10(records, counts)
     except Exception:
         traceback.print_exc()
         return 1

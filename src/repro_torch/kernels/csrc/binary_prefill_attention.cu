@@ -538,6 +538,8 @@ cudaError_t dispatch_dv(int Dv, const Args& a, cudaStream_t stream) {
       return launch<VT, 32>(a, stream);
     case 64:
       return launch<VT, 64>(a, stream);
+    case 80:  // hubert-xlarge's heads
+      return launch<VT, 80>(a, stream);
     case 128:
       return launch<VT, 128>(a, stream);
     default:

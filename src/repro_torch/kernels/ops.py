@@ -6,7 +6,9 @@ per-slot -> per-row tables and scalars, and page selection, and dispatch
 by the DEVICE OF THE TENSORS: CUDA tensors launch the hand-written kernel
 (a failed build or launch raises; nothing falls back), CPU tensors run the
 kernel's plain version from ``repro_torch.kernels.ref`` on the same
-inputs.
+inputs. Each entry reports its kernel's work through ``kernels.cost``
+from shapes and lengths, so a counted step gives the same flops and bytes
+on either device.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import binary_decode_attention as _dec
 from repro_torch.kernels import binary_page_score as _pscore
 from repro_torch.kernels import binary_paged_decode_attention as _pdec
 from repro_torch.kernels import binary_prefill_attention as _pre
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import hamming_score as _hs
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import row_tables as _row_tables
@@ -84,11 +87,13 @@ def hamming_scores(q_bits: torch.Tensor, k_bits: torch.Tensor, d: int, *,
     n = k_bits.shape[-2]
     qf = q_bits.reshape(-1, m, w)
     kf = k_bits.reshape(-1, n, w)
-    if not q_bits.is_cuda:
-        out = ref.hamming_score_ref(qf, kf, d)
-    else:
-        out = _hs.hamming_score(qf.contiguous(), kf.contiguous(), d,
-                                method=method)
+    with _cost.kernel(_hs.NAME, lambda: _cost.k5_work(
+            batch=qf.shape[0], m=m, n=n, w=w)):
+        if not q_bits.is_cuda:
+            out = ref.hamming_score_ref(qf, kf, d)
+        else:
+            out = _hs.hamming_score(qf.contiguous(), kf.contiguous(), d,
+                                    method=method)
     return out.reshape(*lead, m, n)
 
 
@@ -112,17 +117,20 @@ def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
     qf = q_bits.reshape(b * hk, g, w)
     vf = v.reshape(b * hk, t, dv)
     len_f = torch.repeat_interleave(_per_slot(lengths, b, q_bits.device), hk)
-    if not q_bits.is_cuda:
-        k_rows = to_bitplanes(k_bits) if bitplanes else k_bits
-        out = ref.decode_attention_ref(
-            qf, k_rows.reshape(b * hk, t, w), vf, d=d, nsel=nsel,
-            scale=scale, lengths=len_f)
-    else:
-        k_planes = k_bits if bitplanes else to_bitplanes(k_bits)
-        out = _dec.decode_attention(
-            qf.contiguous(), k_planes.reshape(b * hk, w, t).contiguous(),
-            vf.contiguous(), len_f.contiguous(), d=d, nsel=nsel,
-            scale=scale, cross=cross)
+    with _cost.kernel(_dec.NAME, lambda: _cost.k4_work(
+            rows=b * hk, g=g, w=w, dv=dv, v_bytes=v.element_size(),
+            lengths=len_f.clamp(0, t).cpu().numpy())):
+        if not q_bits.is_cuda:
+            k_rows = to_bitplanes(k_bits) if bitplanes else k_bits
+            out = ref.decode_attention_ref(
+                qf, k_rows.reshape(b * hk, t, w), vf, d=d, nsel=nsel,
+                scale=scale, lengths=len_f)
+        else:
+            k_planes = k_bits if bitplanes else to_bitplanes(k_bits)
+            out = _dec.decode_attention(
+                qf.contiguous(), k_planes.reshape(b * hk, w, t).contiguous(),
+                vf.contiguous(), len_f.contiguous(), d=d, nsel=nsel,
+                scale=scale, cross=cross)
     return out.reshape(b, h, dv)
 
 
@@ -152,17 +160,28 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
     qf = q_bits.reshape(b * hk, g, w).contiguous()
     lengths = _per_slot(lengths, b, q_bits.device)
     bt_rows, counts, len_f = _row_tables(block_tables, lengths, hk, page)
-    if page_topn is not None and page_topn < bt_rows.shape[1]:
+    r, nb = bt_rows.shape
+    if page_topn is not None and page_topn < nb:
         select = (_pscore.paged_select_pages if q_bits.is_cuda
                   else ref.paged_select_pages_ref)
-        bt_rows, counts, _ = select(qf, k_pool, bt_rows, counts, len_f, d=d,
-                                    page=page, n_sel=page_topn)
-    if not q_bits.is_cuda:
-        out = ref.paged_decode_attention_rows_ref(
-            qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel, scale=scale)
-    else:
-        out = _pdec.paged_decode_attention(
-            qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel, scale=scale)
+        listed = counts
+        with _cost.kernel(_pscore.NAME, lambda: _cost.k3_work(
+                rows=r, g=g, w=w, nb=nb, n_sel=page_topn,
+                counts=listed.cpu().numpy())):
+            bt_rows, counts, _ = select(qf, k_pool, bt_rows, counts, len_f,
+                                        d=d, page=page, n_sel=page_topn)
+    dv = v_pool.shape[-1]
+    with _cost.kernel(_pdec.NAME, lambda: _cost.k2_work(
+            rows=r, g=g, w=w, dv=dv, v_bytes=v_pool.element_size(),
+            nb=bt_rows.shape[1], counts=counts.cpu().numpy())):
+        if not q_bits.is_cuda:
+            out = ref.paged_decode_attention_rows_ref(
+                qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel,
+                scale=scale)
+        else:
+            out = _pdec.paged_decode_attention(
+                qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel,
+                scale=scale)
     return out.reshape(b, h, -1)
 
 
@@ -189,14 +208,21 @@ def prefill_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
     qf = q_bits.reshape(b * h, s, w)
     kf = k_bits.reshape(b * hk, t, w)
     vf = v.reshape(b * hk, t, dv)
-    if not q_bits.is_cuda:
-        out = ref.prefill_attention_ref(
-            qf, kf, vf, d=d, nsel=nsel, scale=scale, kv_length=kv_len,
-            q_offset=q_off, group_size=g, q_length=q_len, causal=causal)
-    else:
-        out = _pre.prefill_attention(
-            qf.contiguous(), kf.contiguous(), vf.contiguous(), d=d,
-            nsel=nsel, scale=scale, kv_length=kv_len.contiguous(),
-            q_offset=q_off.contiguous(), q_length=q_len.contiguous(),
-            group_size=g, n_kv_heads=hk, causal=causal)
+    with _cost.kernel(_pre.NAME, lambda: _cost.k1_work(
+            rows=b * h, s=s, w=w, dv=dv, v_bytes=v.element_size(),
+            group_size=g, kv_length=kv_len.clamp(0, t).cpu().numpy(),
+            q_offset=q_off.cpu().numpy(), q_length=q_len.cpu().numpy(),
+            causal=causal)):
+        if not q_bits.is_cuda:
+            out = ref.prefill_attention_ref(
+                qf, kf, vf, d=d, nsel=nsel, scale=scale, kv_length=kv_len,
+                q_offset=q_off, group_size=g, q_length=q_len,
+                causal=causal)
+        else:
+            out = _pre.prefill_attention(
+                qf.contiguous(), kf.contiguous(), vf.contiguous(), d=d,
+                nsel=nsel, scale=scale, kv_length=kv_len.contiguous(),
+                q_offset=q_off.contiguous(), q_length=q_len.contiguous(),
+                group_size=g, n_kv_heads=hk, causal=causal)
     return out.reshape(b, h, s, dv)
+

@@ -79,15 +79,20 @@ class Attention(nn.Module):
         self.register_buffer("sigma_q", sigma.clone().to(device))
         self.register_buffer("sigma_k", sigma.clone().to(device))
         self.dh = dh
-        self.refresh_scale()
+        # from the host value: a module built on the meta device has none
+        self.scale = _logit_scale(sigma.item(), sigma.item(), dh)
 
     def refresh_scale(self) -> None:
         """Recompute the float32 logit scale (sigma_q * sigma_k) * dh^-0.5
         from the sigma buffers. Called once when the weights are set, so
         the serving hot path never reads a device scalar back."""
-        sq = np.float32(self.sigma_q.item())
-        sk = np.float32(self.sigma_k.item())
-        self.scale = float(np.float32(sq * sk) * np.float32(self.dh ** -0.5))
+        self.scale = _logit_scale(self.sigma_q.item(), self.sigma_k.item(),
+                                  self.dh)
+
+
+def _logit_scale(sigma_q: float, sigma_k: float, dh: int) -> float:
+    sq, sk = np.float32(sigma_q), np.float32(sigma_k)
+    return float(np.float32(sq * sk) * np.float32(dh ** -0.5))
 
 
 # ---------------------------------------------------------------------------

@@ -125,11 +125,18 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     loga = dtc * a[None, None, None, :]                   # [B,NC,L,NH] <= 0
     cum = torch.cumsum(loga, dim=2)
 
-    # intra-chunk: M[t,s] = (C_t.B_s) exp(cum_t - cum_s) dt_s for s <= t;
-    # above the diagonal exp() may overflow to inf, so mask by selection
+    # intra-chunk: M[t,s] = (C_t.B_s) exp(cum_t - cum_s) dt_s for s <= t.
+    # Above the diagonal cum_t - cum_s > 0 and exp() overflows to inf at
+    # long chunks; its gradient there (0 * inf) would be NaN, so the
+    # exponent is masked to -inf first (exp -> exactly 0). The JAX
+    # package masks after the exp: the same values, and NaN gradients.
     gram = torch.einsum("bctn,bcsn->bcts", cc, bc)        # [B,NC,L,L]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     tri = torch.tril(torch.ones((l, l), dtype=torch.bool, device=xh.device))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                  torch.full((), -torch.inf,
+                                             dtype=seg.dtype,
+                                             device=xh.device)))
     m = torch.where(tri[None, None, :, :, None],
                     gram[..., None] * decay * dtc[:, :, None, :, :],
                     torch.zeros((), dtype=decay.dtype, device=xh.device))

@@ -266,15 +266,16 @@ def test_split_plan_depends_on_shapes_only(nb, page):
                                       ("decode", 53), ("decode", 1)])
 def test_k1_k4_plans_depend_on_shapes_only(kernel, t):
     """K1's and K4's grids and scratch come from tensor shapes alone (no
-    plan argument can carry a length or an offset), and their splits cut
-    the key axis into runs of SPLIT_TILES 64-key tiles counted from key 0.
-    K4 takes K2's plan with T positions a row."""
+    plan argument can carry a length or an offset; K1's also takes the
+    GQA group size, which shapes its waves), and
+    their splits cut the key axis into runs of SPLIT_TILES 64-key tiles
+    counted from key 0. K4 takes K2's plan with T positions a row."""
     b, h, hk, s, d, dv = 2, 6, 2, 300, 64, 32
     g = h // hk
     mod = pre if kernel == "prefill" else pdec
     assert list(inspect.signature(mod.split_plan).parameters) == [
         "q_shape", "t" if kernel == "prefill" else "n_pos", "dv", "d",
-        "split_tiles"]
+        "split_tiles"] + (["group_size"] if kernel == "prefill" else [])
     keys = mod.SPLIT_TILES * ref.TILE_KEYS
     if kernel == "prefill":
         plan = pre.split_plan((b * h, s, 2), t, dv, d)

@@ -14,6 +14,7 @@ engine from its first step, both step graphs captured in its worker.
 """
 import asyncio
 import json
+import time
 
 import numpy as np
 import pytest
@@ -95,8 +96,13 @@ def test_pipelined_outputs_bit_identical_to_sync(path):
 def test_overlap_fraction_and_step_events():
     """Pipelined step events carry overlap timings and the `pipelined`
     flag; sync events keep exactly the four original keys;
-    `overlap_stats()` reports its four keys."""
-    tel = Telemetry()
+    `overlap_stats()` reports its four keys. The overlap is measured on
+    the engine thread's CPU clock: on the wall clock, a worker that the
+    OS takes off the CPU during the first `schedule()` (which no step can
+    overlap) for a few ms fails the bound at once (8 of 40 runs beside six
+    busy processes, first schedule 8-46 ms of wall time for 0.2-0.5 ms of
+    CPU time; 0 of 40 on this clock)."""
+    tel = Telemetry(clock=time.thread_time)
     eng = _engine(OVERCOMMIT, telemetry=tel)
     _submit_workload(eng)
     eng.run_pipelined()
