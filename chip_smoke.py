@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs ten phases; any failure exits non-zero before the result line.
+runs eleven phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -161,6 +161,24 @@ runs ten phases; any failure exits non-zero before the result line.
    assigned archs (none an error, the three largest fitting no cell);
    and the counted flops and bytes of a reduced binary serve step, equal
    on the CPU and the card.
+11. Tensor-parallel serving, after phase 10: smollm-135m as published at
+   tp 3, three ranks spawned on the one card (``launch.mesh.spawn``,
+   gloo, every rank on cuda:0, the eager step; each launches K1-K4 on
+   its one kv head), phase 4's weights (saved once by this process after
+   phase 5, loaded by each rank) and workload: paged (K1 + K2), dense (K1
+   + K4), page_topn 64 (K3 + K2), fp paged with page_topn 64 (the
+   per-slot page-score max over the ranks) and phase 5's 384-page swap
+   pool. First, on this process: a rank's wq / wk / wv columns and its
+   lm_head vocabulary slice equal the full products' bit for bit at phase
+   4's shapes (the serving step's blocked lm_head GEMMs; the one-GEMM
+   product is logged beside), and the four kernels' records at a rank's
+   shapes (3 query heads over 1 kv head, G 3, d 64; K3 timed at n_sel
+   64). Then every run's token digest equals its single-rank run's of
+   phase 4 (swap: phase 4's paged, as phase 5's), per-rank cache bytes x
+   3 equal the total, every rank follows phase 4's launch rule, and the
+   host ms of prefill and decode steps, tok/s and the collectives staged
+   through host memory are printed beside the card. A rank that fails or
+   outlasts TP_TIMEOUT_S fails the phase.
 
 `--profile DIR` profiles the prefill of one 3072-token prompt and decode
 windows of the paged, the dense, the full-precision paged and the
@@ -177,8 +195,10 @@ import contextlib
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -214,6 +234,11 @@ K3_DBRX = "binary_page_score[dbrx]"
 K4_DBRX = "binary_decode_attention[dbrx self]"
 MAMBA = "mamba2-130m"
 JAMBA = "jamba-1.5-large-398b"
+# phase 11's records: the kernels at a tensor-parallel rank's shapes
+K1_TP = "binary_prefill_attention[smollm tp3 rank]"
+K2_TP = "binary_paged_decode_attention[smollm tp3 rank]"
+K3_TP = "binary_page_score[smollm tp3 rank]"
+K4_TP = "binary_decode_attention[smollm tp3 rank]"
 
 
 def log(msg: str) -> None:
@@ -873,9 +898,11 @@ def _decode_rows_work(q, k_rows, lens, index_bytes, *, d, nsel, dv):
     return nbytes, [(nops, CUDA_CORE_OPS_PER_S)]
 
 
-def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
-    """K1, K2, K3 and K4 at a d-128 model's serving shapes (h query heads
-    over hk kv heads; phase 6's and phase 8's paths), each against its
+def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict, d: int = VD,
+                 k3_nsel: int = 255) -> dict:
+    """K1, K2, K3 and K4 at a model's serving shapes (h query heads over hk
+    kv heads of width d, 128 by default; phase 6's and phase 8's paths,
+    and a phase-11 rank's), each against its
     plain version at phase 2's tolerances, timed by CUDA events (K3 by
     device time), with its bound and host time: K1 causal, slot 0's last
     512-query chunk of a 2048-token prompt over the 4096-position table,
@@ -888,7 +915,8 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
     non-causal over the 1601 image keys, every query of every slot live
     (a cross layer's chunk: the JAX step passes no q_length there), and K4
     over the 1601-key cross cache (a cross layer's decode step, paged
-    engine or not), both also checked at nsel 2000, past the 1601 keys."""
+    engine or not), both also checked at nsel 2000, past the 1601 keys.
+    `d` is the head width (V as wide); K3 is timed at `k3_nsel`."""
     import torch
     from repro_torch.kernels import binary_decode_attention as dec
     from repro_torch.kernels import binary_paged_decode_attention as pdec
@@ -897,6 +925,7 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
     records = {}
     t_tab = NB * PAGE
     g_size = h // hk
+    w, dv, scale = d // 32, d, d ** -0.5
 
     def per_row(vals):
         return torch.tensor(vals, dtype=torch.int32,
@@ -909,14 +938,14 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
                                     per_row([1536, 512, 0, 1000]),
                                     per_row([CHUNK] * VB))
     for name, (t, causal, qoff, qlen) in cases.items():
-        q = _bits((VB * h, CHUNK, VD), gen)
-        k = _bits((VB * hk, t, VD), gen)
-        v = torch.randn((VB * hk, t, VDV), generator=gen,
+        q = _bits((VB * h, CHUNK, d), gen)
+        k = _bits((VB * hk, t, d), gen)
+        v = torch.randn((VB * hk, t, dv), generator=gen,
                         device="cuda").to(torch.bfloat16)
         kvl = qoff + qlen if causal else torch.full_like(qoff, t)
         err = 0.0
         for nsel in (NSEL, 2000) if not causal else (NSEL,):
-            kw = dict(d=VD, nsel=nsel, scale=V_SCALE, kv_length=kvl,
+            kw = dict(d=d, nsel=nsel, scale=scale, kv_length=kvl,
                       q_offset=qoff, q_length=qlen, causal=causal)
             got = pre.prefill_attention(q, k, v, group_size=g_size,
                                         n_kv_heads=hk, **kw)
@@ -928,7 +957,7 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
             err = max(err, e) if nsel == NSEL else err
             log(f"phase 2: {name} nsel {nsel} max_abs_err {e:.3e}")
             del got, want
-        kw = dict(d=VD, nsel=NSEL, scale=V_SCALE, kv_length=kvl,
+        kw = dict(d=d, nsel=NSEL, scale=scale, kv_length=kvl,
                   q_offset=qoff, q_length=qlen, causal=causal)
 
         def k1():
@@ -937,7 +966,7 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
         ms = cuda_ms(k1, iters=20)
         plain_ms = cuda_ms(lambda: ref.prefill_attention_ref(
             q, k, v, group_size=g_size, **kw), iters=2, warmup=1)
-        work = _k1_work(q, k, VDV, kvl, qoff, qlen, d=VD, nsel=NSEL,
+        work = _k1_work(q, k, dv, kvl, qoff, qlen, d=d, nsel=NSEL,
                         causal=causal)
         records[name] = _record(
             pre, "src/repro/kernels/binary_prefill_attention.py:106", err,
@@ -949,28 +978,28 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
     n_pages = VB * NB
     lens = torch.tensor([2063, 1030, 1790, 527], dtype=torch.int32,
                         device="cuda")
-    qd = _bits((VB, h, VD), gen)
-    k_pool = _bits((n_pages + 1, hk, PAGE, VD), gen).transpose(-1, -2) \
+    qd = _bits((VB, h, d), gen)
+    k_pool = _bits((n_pages + 1, hk, PAGE, d), gen).transpose(-1, -2) \
         .contiguous()
-    v_pool = torch.randn((n_pages + 1, hk, PAGE, VDV), generator=gen,
+    v_pool = torch.randn((n_pages + 1, hk, PAGE, dv), generator=gen,
                          device="cuda").to(torch.bfloat16)
     bt = torch.randperm(n_pages, generator=gen, device="cuda").reshape(
         VB, NB).to(torch.int32)
     bt = torch.where(torch.arange(NB, device="cuda")[None]
                      < ((lens + PAGE - 1) // PAGE)[:, None], bt, -1)
-    kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
+    kw = dict(d=d, nsel=NSEL, scale=scale)
     got = ops.paged_decode_attention(qd, k_pool, v_pool, bt, lengths=lens,
                                      **kw)
     want = ref.paged_decode_attention_ref(
-        qd.reshape(VB, hk, g_size, VW), k_pool, v_pool, bt, lengths=lens,
-        **kw).reshape(VB, h, VDV)
+        qd.reshape(VB, hk, g_size, w), k_pool, v_pool, bt, lengths=lens,
+        **kw).reshape(VB, h, dv)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
     err = (got - want).abs().max().item()
     log(f"phase 2: {names['k2']} lengths {lens.tolist()} max_abs_err "
         f"{err:.3e}")
     bt_rows, counts, len_f = ops._row_tables(bt, lens, hk, PAGE)
-    qf = qd.reshape(VB * hk, g_size, VW).contiguous()
+    qf = qd.reshape(VB * hk, g_size, w).contiguous()
 
     def k2():
         return pdec.paged_decode_attention(qf, k_pool, v_pool, bt_rows,
@@ -980,25 +1009,26 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
         qf, k_pool, v_pool, bt_rows, counts, **kw), iters=5, warmup=1)
     from repro_torch.models.attention_block import gather_pages
     k_rows = gather_pages(k_pool, bt.clamp_min(0), 3).transpose(-1, -2) \
-        .reshape(VB * hk, NB * PAGE, VW)
+        .reshape(VB * hk, NB * PAGE, w)
     work = _decode_rows_work(qf, k_rows, lens.repeat_interleave(hk),
-                             2 * VB * hk * NB * 4, d=VD, nsel=NSEL, dv=VDV)
+                             2 * VB * hk * NB * 4, d=d, nsel=NSEL, dv=dv)
     records[names["k2"]] = _record(
         pdec, "src/repro/kernels/binary_paged_decode_attention.py:109", err,
         ms, plain_ms, work, host_us(k2), name=names["k2"])
     records[names["k3"]] = _phase2_wide_k3(qf, k_pool, bt_rows, counts,
-                                           len_f, names["k3"])
+                                           len_f, names["k3"], d=d,
+                                           timed_nsel=k3_nsel)
     del k_pool, v_pool, k_rows
 
     # K4 over a dense engine's self-attention cache at K2's lengths
     r, t_dense = VB * hk, t_tab + 1
-    qd = _bits((r, g_size, VD), gen)
-    k = _bits((r, t_dense, VD), gen)
+    qd = _bits((r, g_size, d), gen)
+    k = _bits((r, t_dense, d), gen)
     planes = k.transpose(-1, -2).contiguous()
-    v = torch.randn((r, t_dense, VDV), generator=gen,
+    v = torch.randn((r, t_dense, dv), generator=gen,
                     device="cuda").to(torch.bfloat16)
     len_f = lens.repeat_interleave(hk)
-    kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
+    kw = dict(d=d, nsel=NSEL, scale=scale)
     got = dec.decode_attention(qd, planes, v, len_f, **kw)
     want = ref.decode_attention_ref(qd, k, v, lengths=len_f, **kw)
     torch.cuda.synchronize()
@@ -1012,7 +1042,7 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
     ms = cuda_ms(k4_self, iters=200)
     plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
         qd, k, v, lengths=len_f, **kw), iters=5, warmup=1)
-    work = _decode_rows_work(qd, k, len_f, r * 4, d=VD, nsel=NSEL, dv=VDV)
+    work = _decode_rows_work(qd, k, len_f, r * 4, d=d, nsel=NSEL, dv=dv)
     records[names["k4"]] = _record(
         dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
         plain_ms, work, host_us(k4_self), name=names["k4"])
@@ -1022,15 +1052,15 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
 
     # K4 over the cross cache: every slot's kv heads, all 1601 keys valid
     name = names["k4_cross"]
-    qd = _bits((r, g_size, VD), gen)
-    k = _bits((r, V_IMG, VD), gen)
+    qd = _bits((r, g_size, d), gen)
+    k = _bits((r, V_IMG, d), gen)
     planes = k.transpose(-1, -2).contiguous()
-    v = torch.randn((r, V_IMG, VDV), generator=gen,
+    v = torch.randn((r, V_IMG, dv), generator=gen,
                     device="cuda").to(torch.bfloat16)
     len_f = torch.full((r,), V_IMG, dtype=torch.int32, device="cuda")
     err = 0.0
     for nsel in (NSEL, 2000):
-        kw = dict(d=VD, nsel=nsel, scale=V_SCALE)
+        kw = dict(d=d, nsel=nsel, scale=scale)
         got = dec.decode_attention(qd, planes, v, len_f, **kw)
         want = ref.decode_attention_ref(qd, k, v, lengths=len_f, **kw)
         torch.cuda.synchronize()
@@ -1038,35 +1068,37 @@ def _phase2_wide(gen, h: int, hk: int, tag: str, names: dict) -> dict:
         e = (got - want).abs().max().item()
         err = max(err, e) if nsel == NSEL else err
         log(f"phase 2: {name} nsel {nsel} max_abs_err {e:.3e}")
-    kw = dict(d=VD, nsel=NSEL, scale=V_SCALE)
+    kw = dict(d=d, nsel=NSEL, scale=scale)
 
     def k4():
         return dec.decode_attention(qd, planes, v, len_f, **kw)
     ms = cuda_ms(k4, iters=200)
     plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
         qd, k, v, lengths=len_f, **kw), iters=5, warmup=1)
-    work = _decode_rows_work(qd, k, len_f, r * 4, d=VD, nsel=NSEL, dv=VDV)
+    work = _decode_rows_work(qd, k, len_f, r * 4, d=d, nsel=NSEL, dv=dv)
     records[name] = _record(
         dec, "src/repro/kernels/binary_decode_attention.py:122", err, ms,
         plain_ms, work, host_us(k4), name=name)
     return records
 
 
-def _phase2_wide_k3(qf, k_pool, bt_rows, counts, len_f, name) -> dict:
+def _phase2_wide_k3(qf, k_pool, bt_rows, counts, len_f, name, d: int = VD,
+                    timed_nsel: int = 255) -> dict:
     """K3 on a `_phase2_wide` K2 case's pools: bounds, tables, counts and
     logical ids equal the plain version's exactly at n_sel 64 and 255;
-    timed by device time at 255, the full-size runs' page_topn."""
+    timed by device time at `timed_nsel` (the full-size runs'
+    page_topn)."""
     import torch
     from repro_torch.kernels import binary_page_score as pscore
     from repro_torch.kernels import ref
-    want_s = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts, d=VD)
+    want_s = ref.paged_page_scores_ref(qf, k_pool, bt_rows, counts, d=d)
     for n_sel in (64, 255):
         scores = torch.empty_like(want_s)
         got = pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
-                                        d=VD, page=PAGE, n_sel=n_sel,
+                                        d=d, page=PAGE, n_sel=n_sel,
                                         scores_out=scores)
         want = ref.paged_select_pages_ref(qf, k_pool, bt_rows, counts, len_f,
-                                          d=VD, page=PAGE, n_sel=n_sel)
+                                          d=d, page=PAGE, n_sel=n_sel)
         torch.cuda.synchronize()
         check(torch.equal(scores, want_s), f"{name} bounds {n_sel}")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -1074,21 +1106,22 @@ def _phase2_wide_k3(qf, k_pool, bt_rows, counts, len_f, name) -> dict:
         log(f"phase 2: {name} n_sel {n_sel} exact (bounds, tables, "
             f"counts, logical; {int((counts > 0).sum())} listed pages, "
             f"{int((want[1] > 0).sum())} kept)")
-    n_sel = 255
+    n_sel = timed_nsel
 
     def k3():
         return pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
-                                         d=VD, page=PAGE, n_sel=n_sel)
+                                         d=d, page=PAGE, n_sel=n_sel)
     ms = device_ms(k3)
     plain_ms = cuda_ms(lambda: ref.paged_select_pages_ref(
-        qf, k_pool, bt_rows, counts, len_f, d=VD, page=PAGE, n_sel=n_sel),
+        qf, k_pool, bt_rows, counts, len_f, d=d, page=PAGE, n_sel=n_sel),
         iters=10, warmup=2)
     r, nb = bt_rows.shape
     g_size = qf.shape[1]
     n_keys = len_f.sum().item()
-    work = (r * g_size * VW * 4 + n_keys * VW * 4 + 2 * r * nb * 4 + r * 4
+    w = d // 32
+    work = (r * g_size * w * 4 + n_keys * w * 4 + 2 * r * nb * 4 + r * 4
             + 3 * r * n_sel * 4,
-            [(n_keys * VW * 2 + r * nb * g_size * VW * 6,
+            [(n_keys * w * 2 + r * nb * g_size * w * 6,
               CUDA_CORE_OPS_PER_S)])
     return _record(pscore, "src/repro/kernels/binary_page_score.py:68", 0.0,
                    ms, plain_ms, work, host_us(k3), name=name)
@@ -2948,6 +2981,216 @@ def phase10(records: dict, counts: dict) -> None:
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving, three ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP = 3
+TP_TIMEOUT_S = 600.0      # the three ranks' whole run, and each collective
+# a rank's attention shapes at tp 3: 3 query heads over 1 kv head (G 3)
+TP_SHAPES = dict(h=9 // TP, hk=3 // TP, tag="smollm tp3", d=64, k3_nsel=64,
+                 names=dict(k1=K1_TP, k2=K2_TP, k3=K3_TP, k4=K4_TP))
+# run -> (ServeConfig fields, the single-rank run of phase 4 whose tokens
+# it must give; phase 5's binary swap run gives phase 4's paged tokens)
+TP_RUNS = {"paged": (dict(paged=True), "paged"),
+           "dense": (dict(paged=False), "dense"),
+           "page_topn_64": (dict(paged=True, page_topn=64), "page_topn_64"),
+           "fp_page_topn_64": (dict(paged=True, page_topn=64, binary=False),
+                               "fp_page_topn_64"),
+           "paged_swap": (dict(paged=True, n_pages=384, swap_pages=1024),
+                          "paged")}
+
+
+def save_weights(model, directory: str) -> None:
+    """The full weights of `model`, once, as a JAX-layout checkpoint
+    (``params.npz``) that `load_npz` + `params_from_numpy` read back."""
+    import numpy as np
+    from repro_torch.checkpoint.bridge import to_jax_flat
+    from repro_torch.models.transformer import named_tensors
+    np.savez(os.path.join(directory, "params.npz"),
+             **to_jax_flat(model.cfg, named_tensors(model)))
+
+
+def _tp_projections(weights_dir: str) -> None:
+    """Does a rank's slice of a projection give the full product's columns
+    bit for bit on the card, at phase 4's shapes (a 2048-row prefill chunk
+    batch and a 4-row decode step; layer 0's wq / wk / wv in bf16 and the
+    float32 lm_head of the last positions)? The serving step's lm_head
+    product (`unembed_blocked`) must; the one-GEMM `unembed` is logged
+    beside it."""
+    import torch
+    from repro_torch.checkpoint import load_npz, params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    model = params_from_numpy(load_npz(weights_dir),
+                              get_config("smollm-135m"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    mix = model.blocks[0].mixer
+    ok, seen = True, []
+    for rows in (2048, 4):
+        x = torch.randn((rows, 576), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for name in ("wq", "wk", "wv"):
+            w = getattr(mix, name).to("cuda")
+            n = w.shape[1] // TP
+            full = x @ w
+            same = all(torch.equal(full[:, r * n:(r + 1) * n],
+                                   x @ w[:, r * n:(r + 1) * n].contiguous())
+                       for r in range(TP))
+            ok &= same
+            seen.append(f"{name} [{rows}, 576] x [576, {n}]: {same}")
+    head = model.lm_head.to("cuda")
+    n = head.shape[1] // TP
+    x = torch.randn((4, 1, 576), generator=gen, device="cuda")
+    for fn in (common.unembed_blocked, common.unembed):
+        full = fn(x, head)
+        same = all(torch.equal(full[..., r * n:(r + 1) * n],
+                               fn(x, head[:, r * n:(r + 1) * n].contiguous()))
+                   for r in range(TP))
+        if fn is common.unembed_blocked:
+            ok &= same
+        seen.append(f"lm_head {fn.__name__} [4, 576] x [576, {n}]: {same}")
+    log("phase 11: a rank's columns equal the full product's, bit for bit: "
+        + "; ".join(seen))
+    check(ok, "phase 11: a sharded projection's columns differ from the "
+              "full product's")
+    del model, head
+
+
+def _tp_rank(weights_dir: str, run_names: list) -> dict:
+    """One of phase 11's ranks: phase 4's weights loaded from the parent's
+    checkpoint, phase 4's workload served once a run over the 1 x 3 mesh
+    (gloo, every rank on cuda:0, the eager step). Rank 0 drives each run
+    and returns its record (`_serve_run`'s, the cache bytes, the step ms,
+    the host-staged collectives); the others follow it and return their
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_npz, params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import Engine, ServeConfig, Telemetry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(data=1, model=TP)
+    cfg = get_config("smollm-135m")
+    model = params_from_numpy(load_npz(weights_dir), cfg)   # on the host
+    _, prompts, gen, base = _workload(cfg)
+    lead = mesh.model_rank == 0
+    out = {}
+    for name in run_names:
+        tel = Telemetry(trace_capacity=4096) if lead else None
+        eng = Engine(cfg, model, ServeConfig(**dict(base, **TP_RUNS[name][0]),
+                                             mesh=mesh),
+                     telemetry=tel, device=mesh.device, eager=True)
+        collectives.reset_staged_counts()
+        if lead:
+            try:
+                r = _serve_run(eng, prompts, gen)
+            finally:
+                eng.close()
+            steps = {k: (len(v), float(np.median(v)))
+                     for k, v in _step_ms(tel).items()}
+            out[name] = dict(
+                {k: r[k] for k in ("digest", "counts", "stats", "wall",
+                                   "steps")},
+                ttft=r["ttft"], itl=r["itl"], step_ms=steps,
+                bytes=eng.runner.cache_device_bytes(),
+                graphs=eng.runner.graph_count(),
+                staged=collectives.staged_counts())
+        else:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            calls = eng.serve_worker()
+            torch.cuda.synchronize()
+            out[name] = dict(counts=ops.launch_counts(), calls=calls,
+                             bytes=eng.runner.cache_device_bytes(),
+                             staged=collectives.staged_counts())
+        del eng
+        _free()
+    return out
+
+
+def phase11(card: str, digests: dict, weights_dir: str,
+            records: dict) -> dict:
+    """Tensor-parallel serving of smollm-135m as published at tp 3: three
+    spawned ranks on the one card (gloo; each rank launches K1-K4 on its
+    kv head), phase 4's weights (saved once by this process, loaded by
+    each rank) and workload, over TP_RUNS. First the projection check
+    (`_tp_projections`) and the kernels' records at a rank's shapes
+    (`_phase2_wide`: 3 query heads over 1 kv head, G 3, d 64). Then each
+    run's token digest must equal its single-rank run's, per rank bytes x
+    3 must equal the total, and every rank must follow phase 4's launch
+    rule (a kernel of the path once a layer a chunk or step, nothing
+    else); a rank that fails or outlasts TP_TIMEOUT_S fails the phase.
+    Returns the per-rank records' launches (rank 0's, over the runs)."""
+    import torch
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    _tp_projections(weights_dir)
+    _free()
+    records.update(_phase2_wide(torch.Generator(device="cuda").manual_seed(
+        11), **TP_SHAPES))
+    _free()
+    t1 = time.perf_counter()
+    ranks = spawn(_tp_rank, TP, weights_dir, list(TP_RUNS), backend="gloo",
+                  timeout=TP_TIMEOUT_S)
+    log(f"phase 11: {TP} ranks (gloo, every rank on cuda:0, eager) served "
+        f"{len(TP_RUNS)} runs in {time.perf_counter() - t1:.1f} s")
+    decoders = {"paged": (pdec,), "dense": (dec,),
+                "page_topn_64": (pdec, pscore), "fp_page_topn_64": (),
+                "paged_swap": (pdec,)}
+    names = {pre.NAME: K1_TP, pdec.NAME: K2_TP, pscore.NAME: K3_TP,
+             dec.NAME: K4_TP}
+    launches = {k: 0 for k in names.values()}
+    for name, (_, ref) in TP_RUNS.items():
+        r = ranks[0][name]
+        st = r["stats"]
+        want = {k: 0 for k in r["counts"]}
+        if "fp_" not in name:
+            want[pre.NAME] = 30 * st["prefill_chunks"]
+        for mod in decoders[name]:
+            want[mod.NAME] = 30 * st["decode_steps"]
+        for rank, rec in enumerate(ranks):
+            check(rec[name]["counts"] == want and st["decode_steps"] > 0,
+                  (name, rank, rec[name]["counts"], want))
+            total, per = rec[name]["bytes"]
+            check(per * TP == total, (name, rank, "bytes", total, per))
+        check(r["graphs"] == 0, (name, "graphs", r["graphs"]))
+        check(r["digest"] == digests[ref],
+              f"phase 11 [{name}]: tokens {r['digest']} differ from the "
+              f"single-rank {ref} run's {digests[ref]}")
+        if name == "paged_swap":
+            check(st["swap_outs"] > 0 and st["swap_ins"] == st["swap_outs"]
+                  and st["replayed_tokens"] == 0, (name, st))
+        for k, v in r["counts"].items():
+            if k in names:
+                launches[names[k]] += v
+        total, per = r["bytes"]
+        ms = ", ".join(f"{k}: {n} steps, median {m:.2f} ms"
+                       for k, (n, m) in sorted(r["step_ms"].items()))
+        log(f"phase 11 [{name}]: {r['steps']} steps, "
+            f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} "
+            f"decode steps, step graphs 0 (eager), launches on each rank "
+            f"{r['counts']}, cache bytes {total} total, {per} a rank, "
+            f"tokens sha1 {r['digest']} (== the single-rank {ref} run's)"
+            + (f", {st['swap_outs']} swap-outs, swap_out_bytes "
+               f"{st['swap_out_bytes']}" if name == "paged_swap" else ""))
+        log(f"phase 11 [{name}]: {card}: host ms a step by kind: {ms}; "
+            f"{_latency(r)}; collectives staged through host memory "
+            f"(gloo, CUDA tensors) by rank: "
+            f"{[rec[name]['staged'] for rec in ranks]}")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
 def profile_decode(eng, name: str, out_dir: str, prompt_len: int) -> None:
     """Device time by group in a decode window of a full-size engine: 4
     slots filled with `prompt_len`-token prompts, then 8 decode steps run
@@ -3249,6 +3492,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
+    weights_dir = tempfile.mkdtemp(prefix="chip_smoke_weights_")
     try:
         card = phase1()
         records = phase2()
@@ -3259,6 +3503,8 @@ def main() -> int:
         phase5(engines, runs)
         if args.profile:
             profile_windows(engines, args.profile)
+        digests = {name: r["digest"] for name, r in runs.items()}
+        save_weights(engines["paged"].runner.model, weights_dir)
         del engines, runs
         vision_counts, engine = phase6()
         counts.update(vision_counts)
@@ -3282,9 +3528,13 @@ def main() -> int:
         phase9()
         _free()
         phase10(records, counts)
+        _free()
+        counts.update(phase11(card, digests, weights_dir, records))
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(weights_dir, ignore_errors=True)
     for name, rec in records.items():
         rec["launches"] = counts[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

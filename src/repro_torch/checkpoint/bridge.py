@@ -21,6 +21,10 @@ tensors stacked back over groups); `to_jax_flat` / `from_jax_flat` map
 any set of a model's named tensors (a student's subset, optimizer
 moments) to and from the checkpoint's flat ``//`` keys (`jax_key`).
 
+`shard_model` cuts a full model to one rank's shard for tensor-parallel
+serving (``distributed.sharding.serve_param_spec`` on each tensor's JAX
+key), so every rank starts from the same full weights.
+
 bfloat16 arrays are recognised by dtype name (``ml_dtypes``' bfloat16, or
 the 2-byte void dtype numpy gives them when ``ml_dtypes`` is absent) and
 reinterpreted bit for bit through ``uint16``; `to_numpy` writes them as
@@ -32,7 +36,9 @@ import os
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import SSM
 from repro_torch.models.transformer import Transformer, named_tensors
@@ -179,3 +185,31 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu"
                         put(w, src["ffn"][name][g], f"{where}/ffn/{name}")
     model.refresh_scales()
     return model.to(device)
+
+
+def shard_model(model: Transformer, mesh, rank: int | None = None
+                ) -> Transformer:
+    """The shard of a full model that mesh rank `rank` (default: the
+    mesh's own) serves: a `Transformer` of the per-rank config
+    (``sharding.local_config``) whose wq / wk / wv hold the rank's heads
+    and whose lm_head holds its vocabulary slice when the vocabulary
+    divides over the model axis (JAX ``serve_param_spec``); every other
+    tensor is copied whole. The tensors are copies on the full model's
+    device, so the full model can be dropped."""
+    cfg = model.cfg
+    tp = int(mesh.shape["model"])
+    rank = mesh.rank if rank is None else rank
+    local = Transformer(sharding.local_config(cfg, tp), device="meta")
+    for name, t in named_tensors(model).items():
+        key, _ = jax_key(cfg, name)
+        spec = sharding.serve_param_spec(key, t.shape, mesh)
+        part = sharding.shard_tensor(t.detach(), spec, mesh, rank).clone(
+            memory_format=torch.contiguous_format)
+        path, _, attr = name.rpartition(".")
+        mod = local.get_submodule(path)
+        if attr in mod._parameters:
+            mod._parameters[attr] = nn.Parameter(part, requires_grad=False)
+        else:
+            mod._buffers[attr] = part
+    local.refresh_scales()
+    return local

@@ -43,8 +43,10 @@ Usage:
 ``--device cuda`` is the default and raises with no card; ``--device
 meta`` stops after the fit check (no step, any machine); ``--device cpu``
 runs the step with the kernels' plain versions (small configs only).
-JAX's ``--mesh`` and ``--carry`` and its ``use_fsdp`` are sharding, which
-waits for tensor parallelism (ROADMAP.md item 2).
+JAX's ``--mesh`` and ``--carry`` and its ``use_fsdp`` shard the step over
+the production mesh; they wait for per-chip memory priced from
+``distributed.sharding.param_spec`` on meta tensors (ROADMAP.md item
+2b).
 """
 from __future__ import annotations
 
@@ -418,8 +420,9 @@ def main(argv=None) -> int:
         return 0
     if args.mesh is not None or args.carry is not None:
         raise NotImplementedError(
-            "--mesh / --carry shard the step over a mesh; tensor "
-            "parallelism is not ported yet (ROADMAP.md item 2)")
+            "--mesh / --carry shard the step over the production mesh; "
+            "its per-chip memory from distributed.sharding.param_spec on "
+            "meta tensors is not ported yet (ROADMAP.md item 2b)")
     resolve_device(args.device)
     archs = ASSIGNED if args.all or args.arch is None else [args.arch]
     shapes = list(M.SHAPES) if args.shape is None else [args.shape]

@@ -16,8 +16,19 @@ replay of one of the runner's two CUDA graphs (prefill chunk, decode
 step); the count is printed at exit. With --async the drive loop is the double-buffered
 `Engine.step_pipelined()` and the overlap summary is printed at exit; with
 --slo-ttft-ms / --slo-itl-ms the summary adds goodput under those
-deadlines. The JAX launcher's --mesh-model (tensor-parallel serving) waits
-for a later slice (ROADMAP.md queue 1).
+deadlines.
+
+--mesh-model N serves tensor-parallel over N ranks (``launch.mesh.spawn``,
+the ``spawn`` start method): every rank draws the same full weights from
+--seed and keeps its shard (heads, kv heads of the caches, the lm_head's
+vocabulary slice); rank 0 schedules, samples and prints, the others
+follow its plans. N must divide n_kv_heads. The backend is NCCL when
+there are N cards (one per rank), gloo otherwise: on one card every rank
+uses cuda:0, on the CPU (--device cpu) gloo. On the card the step runs
+eager (gloo's collectives cannot be captured; `step graphs: 0`).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --paged --mesh-model 3                 # three ranks on one card
 
 A model with cross-attention layers (--arch llama-3.2-vision-11b) is
 served text-only, as the JAX launcher serves it: it has no image flag, so
@@ -42,13 +53,40 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh, spawn
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import Engine, SamplingParams, ServeConfig, Telemetry
 from repro_torch.serve.runner import resolve_device
 from repro_torch.serve.telemetry import slo_attainment
 
 
+RANK_TIMEOUT_S = 3600.0   # a tensor-parallel run's ranks, and collectives
+
+
 def main(argv=None):
+    args = _parse(argv)
+    if args.mesh_model < 1:
+        raise SystemExit(f"--mesh-model must be >= 1, got {args.mesh_model}")
+    if args.mesh_model == 1:
+        return _serve(args)
+    n = args.mesh_model
+    cards = (torch.cuda.device_count()
+             if resolve_device(args.device).type == "cuda" else 0)
+    backend = "nccl" if cards >= n else "gloo"
+    return spawn(_serve_rank, n, args, backend=backend,
+                 timeout=RANK_TIMEOUT_S)[0]
+
+
+def _serve_rank(args):
+    """One rank of `--mesh-model N`: the whole run on rank 0, the
+    worker loop on the others."""
+    dev = resolve_device(args.device)
+    mesh = make_host_mesh(data=1, model=args.mesh_model,
+                          device=None if dev.type == "cuda" else dev)
+    return _serve(args, mesh)
+
+
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -123,12 +161,20 @@ def main(argv=None):
                     help="synchronize the device between execute and commit "
                          "so per-step execute timings measure device time, "
                          "not dispatch time (enables telemetry)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel serving over N ranks: wq/wk/wv "
+                         "head-sharded, KV pools sharded over kv heads, "
+                         "outputs bit-identical to N=1. N must divide "
+                         "n_kv_heads. NCCL with N cards, else gloo (one "
+                         "card shared by every rank, or the CPU)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def _serve(args, mesh=None):
     paged = (args.paged or args.prefix_cache or bool(args.swap_pages)
              or bool(args.page_topn))
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     cfg = get_config(args.arch, reduced=args.reduced)
     if cfg.is_encoder:
@@ -154,8 +200,30 @@ def main(argv=None):
         page_size=args.page_size, n_pages=args.n_pages or None,
         policy=args.policy, prefix_cache=args.prefix_cache,
         page_topn=args.page_topn or None, swap_pages=args.swap_pages,
-        victim_policy=args.victim_policy), telemetry=telemetry,
-        device=device)
+        victim_policy=args.victim_policy, mesh=mesh), telemetry=telemetry,
+        device=device, eager=mesh is not None and device.type == "cuda")
+    if mesh is not None and mesh.model_rank != 0:
+        eng.serve_worker()
+        return None
+    if mesh is not None:
+        n, cards = args.mesh_model, (torch.cuda.device_count()
+                                     if device.type == "cuda" else 0)
+        why = ("one card a rank" if mesh.backend == "nccl" else
+               f"{cards} card(s) for {n} ranks, every rank on {device}: "
+               f"NCCL needs one card a rank" if cards else "the CPU")
+        print(f"mesh: 1 data x {n} model over {n} ranks, backend "
+              f"{mesh.backend} ({why})")
+        total_b, per_b = eng.runner.cache_device_bytes()
+        print(f"  kv pools: {total_b} bytes total, {per_b} per rank")
+    try:
+        return _drive(args, eng, cfg, prompts, lens, n_req, telemetry, slo,
+                      binary, paged, device)
+    finally:
+        eng.close()
+
+
+def _drive(args, eng, cfg, prompts, lens, n_req, telemetry, slo, binary,
+           paged, device):
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, seed=args.seed)
 

@@ -52,6 +52,7 @@ from repro_torch.core import attention as A
 from repro_torch.core import binarize as BZ
 from repro_torch.core import hamming
 from repro_torch.core.attention import standard_attention
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import top_blocks
 from repro_torch.models import common
@@ -467,7 +468,11 @@ def _page_topn_keep(page_scores: torch.Tensor, kv_len: torch.Tensor, *,
     return keep.repeat_interleave(page, dim=1)
 
 
-def _out(p: Attention, ctx: torch.Tensor) -> torch.Tensor:
+def _out(p: Attention, ctx: torch.Tensor, group=None) -> torch.Tensor:
+    # tensor-parallel serving: ctx holds this rank's heads and wo is
+    # replicated, so the full head axis is gathered first, which keeps one
+    # device's contraction order (a sum of partial wo products would not)
+    ctx = collectives.all_gather_heads(ctx, group)
     b, h, s, dh = ctx.shape
     y = ctx.transpose(1, 2).reshape(b, s, h * dh)
     return y.to(p.wo.dtype) @ p.wo
@@ -479,7 +484,8 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                n_valid: torch.Tensor | None = None,
                active: torch.Tensor | None = None,
                page_topn: int | None = None,
-               binary: bool = True, cross: bool = False) -> torch.Tensor:
+               binary: bool = True, cross: bool = False,
+               group=None) -> torch.Tensor:
     """Prefill chunk (S > 1) or decode step (S == 1).
 
     x [B, S, D]; pos [B] per-slot position of x[:, 0]; block_tables
@@ -491,10 +497,16 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     cross: a cross-attention layer over the static cache `cache` (a
     [B, ...] view; see `_cross_attn`). Updates `cache` in place (a
     self-attention layer) and returns y [B, S, D].
+
+    group: the process group of tensor-parallel serving, where `p`, `cfg`
+    and `cache` hold this rank's heads; the context is gathered over the
+    group's heads before wo. The binary kernels select keys per (slot,
+    kv head), so only the full-precision page-sparse decode needs one
+    more collective (its per-slot page scores, a max over every head).
     """
     if cross:
         return _cross_attn(p, x, cfg=cfg, cache=cache, pos=pos, n=n,
-                           binary=binary)
+                           binary=binary, group=group)
     b, s, _ = x.shape
     dh, h, hk = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     q = (x @ p.wq).reshape(b, s, h, dh).transpose(1, 2)
@@ -509,7 +521,8 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
         return _out(p, _attn_std(q, k, v, cfg=cfg, cache=cache, pos=pos,
                                  kv_len=kv_len, block_tables=block_tables,
                                  n_valid=n_valid, active=active,
-                                 page_topn=page_topn).to(x.dtype))
+                                 page_topn=page_topn, group=group
+                                 ).to(x.dtype), group)
     qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
     if block_tables is None:
         _update_binary_cache(cache, k, v, pos, n_valid=n_valid,
@@ -523,7 +536,7 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                 qb, ops.to_bitplanes(cache["k_bits"]), cache["v"], d=dh,
                 nsel=n, scale=p.scale, kv_length=kv_len, q_offset=pos,
                 q_length=n_valid, causal=cfg.causal)
-        return _out(p, y.to(x.dtype))
+        return _out(p, y.to(x.dtype), group)
     # writes see the RAW table (a -1 under a valid token is dropped);
     # reads clamp -1 to page 0, which only ever lies past a row's length
     bt = block_tables.clamp_min(0)
@@ -541,12 +554,12 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
             qb, ops.to_bitplanes(k_rows), v_rows, d=dh, nsel=n,
             scale=p.scale, kv_length=kv_len, q_offset=pos, q_length=n_valid,
             causal=cfg.causal)
-    return _out(p, y.to(x.dtype))
+    return _out(p, y.to(x.dtype), group)
 
 
 def _cross_attn(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                 cache: dict, pos: torch.Tensor, n: int,
-                binary: bool) -> torch.Tensor:
+                binary: bool, group=None) -> torch.Tensor:
     """The cross branch of `attn_serve`, as the JAX package's: queries
     without RoPE attend every position of the static cache [B, ...]
     (valid length: the whole cache), non-causally, and nothing is written.
@@ -560,7 +573,7 @@ def _cross_attn(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     if not binary:
         return _out(p, standard_attention(
             q, cache["k"], cache["v"], scale=dh ** -0.5, causal=False,
-            q_offset=pos).to(x.dtype))
+            q_offset=pos).to(x.dtype), group)
     t = cache["v"].shape[2]
     # lengths as device fills, never host copies: a captured step holds them
     kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
@@ -576,14 +589,14 @@ def _cross_attn(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
             scale=p.scale, kv_length=kv_len, q_offset=pos,
             q_length=torch.full((b,), s, dtype=torch.int32,
                                 device=x.device), causal=False)
-    return _out(p, y.to(x.dtype))
+    return _out(p, y.to(x.dtype), group)
 
 
 def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               cfg: ModelConfig, cache: dict, pos: torch.Tensor,
               kv_len: torch.Tensor, block_tables: torch.Tensor | None,
               n_valid: torch.Tensor | None, active: torch.Tensor | None,
-              page_topn: int | None) -> torch.Tensor:
+              page_topn: int | None, group=None) -> torch.Tensor:
     """The full-precision branch of `attn_serve` (JAX
     ``attn_serve(binary=False)``): write the new K/V, gather the rows
     (paged) or take the dense cache, mask past each slot's length and run
@@ -596,7 +609,8 @@ def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Page-sparse decode (paged, S == 1, page_topn) scores each page by its
     exact max QK logit over kv heads, grouped heads and in-page positions,
     one score per SLOT, and keeps the `_page_topn_keep` pages as a kv_valid
-    restriction (no compacted table).
+    restriction (no compacted table). Under tensor parallelism (`group`)
+    the slot's score is the max over every rank's kv heads.
     """
     b, _, s, dh = q.shape
     if block_tables is None:
@@ -621,6 +635,7 @@ def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               k_rows.to(torch.float32))
         logits = torch.where(kv_valid[:, None, None], logits, -torch.inf)
         sc = logits.reshape(b, -1, t_max // page, page).amax(dim=(1, 3))
+        sc = collectives.all_reduce_max(sc, group)
         kv_valid = kv_valid & _page_topn_keep(sc, kv_len, page=page,
                                               n_sel=page_topn)
     return standard_attention(q, k_rows, v_rows, scale=dh ** -0.5,

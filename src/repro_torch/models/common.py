@@ -82,6 +82,27 @@ def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
+# the serving step's unembed runs GEMMs this many vocabulary columns wide
+UNEMBED_BLOCK = 4096
+
+
+def unembed_blocked(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`unembed` as GEMMs of UNEMBED_BLOCK columns each, over contiguous
+    row blocks of w's float32 transpose, when the vocabulary divides (else
+    `unembed`). Every GEMM has one shape and one layout whether w is the
+    whole vocabulary or a tensor-parallel rank's slice of it, so each
+    column's float32 sum runs in one order: cuBLAS picks its algorithm by
+    the product's shape, and on an H100 a 4-row [576, 49152] product and
+    its [576, 16384] slice sum some columns differently."""
+    v = w.shape[-1]
+    if v % UNEMBED_BLOCK:
+        return unembed(x, w)
+    wt = w.t().to(torch.float32, memory_format=torch.contiguous_format)
+    xf = x.to(torch.float32)
+    return torch.cat([xf @ wt[i:i + UNEMBED_BLOCK].t()
+                      for i in range(0, v, UNEMBED_BLOCK)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # pooled per-slot state (indexed entry reads and writes)
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import losses
+from repro_torch.distributed import collectives
 from repro_torch.models import attention_block as AB
 from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -573,7 +574,8 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                zero_fresh: bool = True,
                logits_mode: str = "all",
                frames: torch.Tensor | None = None,
-               frames_rows: torch.Tensor | None = None) -> torch.Tensor:
+               frames_rows: torch.Tensor | None = None,
+               group=None) -> torch.Tensor:
     """Prefill (tokens [B, S>1]) or decode (tokens [B, 1]) against the
     caches, which are updated in place.
 
@@ -606,6 +608,14 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
 
     logits_mode="last" returns each row's logits at its last valid
     position only. Returns float32 logits [B, S or 1, padded_vocab].
+
+    group: tensor-parallel serving's process group. `model` and `caches`
+    then hold this rank's shard (``checkpoint.bridge.shard_model``: its
+    heads, the kv heads of every k_bits / k / v leaf, and the lm_head's
+    vocabulary slice when it was sharded); each attention layer gathers
+    its context over the group's heads, and vocabulary-sharded logits are
+    gathered at the end, so every rank returns the full logits, equal bit
+    for bit to one device's.
     """
     cfg = model.cfg
     b, s = tokens.shape
@@ -643,12 +653,14 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
         elif kind == "C":
             view = _cross_view(cache, st, st_ok, zero)
             x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=view,
-                                  pos=pos, n=n, binary=binary, cross=True)
+                                  pos=pos, n=n, binary=binary, cross=True,
+                                  group=group)
         else:
             x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=cache,
                                   pos=pos, n=n, block_tables=block_tables,
                                   n_valid=n_valid, active=active,
-                                  page_topn=page_topn, binary=binary)
+                                  page_topn=page_topn, binary=binary,
+                                  group=group)
         if cfg.d_ff > 0:
             h2 = common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps)
             if isinstance(blk.ffn, moe.MoE):
@@ -664,4 +676,10 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
             x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     x = common.rmsnorm(model.final_norm.w, x, eps=cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return common.unembed(x, head)
+    logits = common.unembed_blocked(x, head)
+    if logits.shape[-1] != cfg.padded_vocab:
+        # a vocabulary-sharded lm_head: each column is a whole dot product
+        # (the model dim is not split), so gathering the ranks' columns in
+        # rank order gives one device's logits exactly
+        logits = collectives.all_gather_last(logits, group)
+    return logits

@@ -23,11 +23,21 @@ FFNs: a request's image embeddings ride in
 prompt frames (a model with a frontend) in `extra={"frames": [1, S,
 frontend_dim]}`, and a paged engine keeps the cross caches and the SSM
 state in a pooled state allocation (`statepool`). An encoder is refused
-(ValueError: encoder-only, no decode loop), and tensor-parallel serving
-raises NotImplementedError, when the engine builds its runner; see
-ROADMAP.md.
+(ValueError: encoder-only, no decode loop) when the engine builds its
+runner.
 The engine runs on the card unless the caller asks for the CPU, each step
 as a CUDA graph replay unless it asks for the eager step (`eager=True`).
+
+Tensor-parallel serving (`ServeConfig(mesh=launch.mesh.make_host_mesh(
+model=N))`, N ranks of one ``torch.distributed`` process group) is SPMD:
+every rank builds the same Engine over the same full model. The mesh's
+first rank drives it as usual (its Scheduler plans and its runner samples);
+every other rank calls `serve_worker()`, which makes each call the first
+rank's runner sends it (the frozen plan of every step, with the `extra`
+arrays its prefill chunks read) until the first rank's `close()`. One
+scheduler, so arrival order (wall time, under AsyncEngine) never splits
+the ranks. On the card it runs the eager step (`eager=True`; see
+``serve/runner.py``).
 
 The low-level `prefill()` / `decode()` methods remain for lockstep use
 (uniform-length batches driven by hand) and for tests.
@@ -100,6 +110,17 @@ class Engine:
     @property
     def stats(self) -> dict:
         return self.scheduler.stats
+
+    def serve_worker(self) -> int:
+        """Tensor-parallel serving, on a rank other than the mesh's first:
+        follow the first rank's runner until its `close()`; returns the
+        calls made."""
+        return self.runner.serve_worker()
+
+    def close(self) -> None:
+        """Tensor-parallel serving, on the mesh's first rank: release the
+        other ranks' `serve_worker()`. A no-op without a mesh."""
+        self.runner.close()
 
     @property
     def slots(self):

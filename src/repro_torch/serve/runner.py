@@ -50,18 +50,44 @@ The graphs hold the addresses of the cache tensors, so every write
 outside them (swap-in, `reset_caches`) is in place, never a rebinding.
 `ModelRunner(eager=True)` runs the same step op by op instead, to compare
 the two; nothing falls back to it.
+
+Tensor-parallel serving (`ServeConfig.mesh`, a ``launch.mesh.HostMesh``
+whose model axis is > 1; JAX ``_build_sharded_step``): every rank of the
+model axis builds a runner over the same full model. Each keeps its shard
+(``checkpoint.bridge.shard_model``: its heads of wq / wk / wv, its
+vocabulary slice of the lm_head, the rest whole) and its kv heads of
+every k_bits / k / v cache leaf, pools and cross caches alike (its own
+trash page, position and entry); tables and plan arrays are the same on
+every rank. The step gathers the attention context over heads before
+wo, and the logits at the end (``distributed.collectives``), so every
+rank holds the full logits, equal bit for bit to one device's. The mesh's
+first rank is the one the engine drives: each call it gets from outside
+(`execute_async`, the lockstep steps, `reset_caches`) is first sent to
+the other ranks, plan and all, and they make it too (`serve_worker`,
+until `close()`), so the plan stays the only channel from the scheduler
+to execution. Every rank samples the same tokens from the same logits.
+Swapped pages are gathered over the ranks' heads, so a stored blob is
+the full logical page, byte-equal to one device's, and each rank
+restores its heads from it. Counters stay logical. On the CPU the step
+kinds still warm up on the static buffers (2 graphs counted, as JAX's
+trace pin); on the card the gloo collectives cannot be captured in a
+CUDA graph, so a tensor-parallel runner there runs eager (eager=True) or
+raises.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.bridge import shard_model
 from repro_torch.core import hamming
+from repro_torch.distributed import collectives, sharding
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -69,8 +95,10 @@ from repro_torch.serve.paged import pages_needed
 from repro_torch.serve.scheduler import SamplingParams, SchedulePlan, ServeConfig
 from repro_torch.serve.telemetry import SERVE_COUNTERS, MetricsRegistry
 from repro_torch.serve.validate import (STATE_LAYER_CHARS,
+                                        mesh_model_size,
                                         resolve_state_pages,
-                                        validate_serve_features)
+                                        validate_serve_features,
+                                        validate_serve_mesh)
 
 
 def resolve_device(device) -> torch.device:
@@ -87,14 +115,41 @@ def resolve_device(device) -> torch.device:
 
 def check_serve_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     """Refuse an encoder (ValueError, the JAX launcher's reason: it has no
-    decode loop), and raise NotImplementedError, naming the ROADMAP item,
-    for a feature the port does not serve yet."""
+    decode loop), and a mesh whose model axis does not divide the kv
+    heads (``validate_serve_mesh``)."""
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only — no decode loop")
-    if scfg.mesh is not None:
-        raise NotImplementedError(
-            "repro_torch does not serve tensor-parallel serving (mesh) yet: "
-            "see ROADMAP.md queue 1, 'Still to port', item 2")
+    validate_serve_mesh(cfg, scfg)
+
+
+def _mirrored(fn):
+    """A runner call the engine makes from outside: on the first rank of
+    a tensor-parallel mesh it is sent to the other ranks before it runs
+    (calls it makes itself are not sent again)."""
+    @functools.wraps(fn)
+    def call(self, *args, **kw):
+        if self._send is None or self._sending:
+            return fn(self, *args, **kw)
+        self._sending = True
+        try:
+            self._send(fn.__name__, args, kw)
+            return fn(self, *args, **kw)
+        finally:
+            self._sending = False
+    return call
+
+
+def _wire_plan(plan: SchedulePlan) -> SchedulePlan:
+    """A plan as the other ranks need it: admissions and decode entries
+    without their request (execution reads only their slots, entries,
+    tokens and rngs); prefill chunks keep theirs, whose prompt tokens and
+    `extra` arrays the chunk reads."""
+    return dataclasses.replace(
+        plan,
+        admissions=tuple(dataclasses.replace(a, request=None)
+                         for a in plan.admissions),
+        decode=tuple(dataclasses.replace(e, request=None)
+                     for e in plan.decode))
 
 
 def _chunk_extra(extra: dict | None, s: int, lo: int, hi: int,
@@ -221,13 +276,32 @@ class ModelRunner:
                  scfg: ServeConfig, stats: dict, *, device="cuda",
                  eager: bool = False):
         """eager=True runs every step op by op on the static buffers,
-        capturing no graph: the comparison that pins graphs == eager."""
+        capturing no graph: the comparison that pins graphs == eager.
+        `model` is the full model, also under a mesh (each rank cuts its
+        own shard)."""
         self.device = resolve_device(device)
         self.eager = eager
         validate_serve_features(cfg.layer_pattern, scfg)
         check_serve_supported(cfg, scfg)
+        self.mesh = scfg.mesh
+        self._tp = mesh_model_size(scfg)
+        self.group = self.mesh.group if self._tp > 1 else None
+        if self._tp > 1 and self.device.type == "cuda" and not eager:
+            raise ValueError(
+                "tensor-parallel serving on the card runs the eager step "
+                "(eager=True): gloo's collectives cannot be captured in a "
+                "CUDA graph, and capturing over NCCL waits for a machine "
+                "with one card per rank (ROADMAP.md item 2a)")
         self.cfg = cfg
+        if self._tp > 1:
+            model = shard_model(model, self.mesh)
         self.model = model.to(self.device)
+        local = self.model.cfg          # this rank's heads; cfg under no mesh
+        # on the mesh's first rank: send each outside call to the others
+        self._send = None
+        self._sending = False
+        if self._tp > 1 and self.mesh.model_rank == 0:
+            self._send = self._broadcast_call
         self.scfg = scfg
         self.stats = MetricsRegistry.adopt(stats)
         self.stats.declare_counters(SERVE_COUNTERS)
@@ -263,7 +337,7 @@ class ModelRunner:
                                   if scfg.binary else self._page_v_bytes)
             self._attn_rows = kinds.count("A") * cfg.n_kv_heads
         self.caches = T.init_caches(
-            cfg, paged=scfg.paged, batch=scfg.batch_slots,
+            local, paged=scfg.paged, batch=scfg.batch_slots,
             max_len=scfg.max_len, n_pages=self.n_pages, page_size=self.page,
             binary=scfg.binary, state_pages=self.n_state_pages or None,
             device=self.device)
@@ -302,17 +376,63 @@ class ModelRunner:
         self._swaps_landed = None
 
     def cache_device_bytes(self) -> tuple[int, int]:
-        """(total, per_device) bytes of every layer's cache; equal, on one
-        device. Unlike the JAX runner's count, which holds the
+        """(logical total, per rank) bytes of every layer's cache; equal on
+        one device. Under a mesh a head-sharded leaf (k_bits / k / v)
+        counts tp times its shard in the total, a replicated one (SSM
+        state) once, so per rank x tp == total when every leaf is
+        head-sharded. Unlike the JAX runner's count, which holds the
         self-attention caches only, it counts the cross caches and the SSM
         state (dense, or the state pool) too. The port's pools and dense
         caches each hold one trash page, position or entry per leaf beyond
         the JAX package's, where dropped writes land, and they are
         counted."""
-        total = sum(leaf.numel() * leaf.element_size()
-                    for cache in self.caches for leaf in cache.values())
-        return total, total
+        total = per = 0
+        for cache in self.caches:
+            for name, leaf in cache.items():
+                nbytes = leaf.numel() * leaf.element_size()
+                per += nbytes
+                total += nbytes * (self._tp if self._head_sharded(name)
+                                   else 1)
+        return total, per
 
+    def _head_sharded(self, name: str) -> bool:
+        """Whether cache leaf `name` holds this rank's kv heads only."""
+        return self._tp > 1 and name in sharding.POOL_HEAD_LEAVES
+
+    # ------------------------------------------------------------------
+    # tensor parallelism: the first rank sends, the others follow
+    # ------------------------------------------------------------------
+    def _broadcast_call(self, op: str, args: tuple, kw: dict) -> None:
+        if op == "execute_async":
+            args = (_wire_plan(args[0]),) + tuple(args[1:])
+        collectives.broadcast_object((op, args, kw), self.mesh.ctrl,
+                                     self.mesh.ranks[0])
+
+    def serve_worker(self) -> int:
+        """On a rank other than the mesh's first: make every call the
+        first rank's runner sends (a plan's `execute_async` as a whole
+        `execute`), until its `close()`. Returns the calls made."""
+        if self._tp <= 1 or self.mesh.model_rank == 0:
+            raise RuntimeError("serve_worker runs on the mesh's other "
+                               "ranks; its first rank drives the engine")
+        calls = 0
+        while True:
+            op, args, kw = collectives.broadcast_object(
+                None, self.mesh.ctrl, self.mesh.ranks[0])
+            if op == "close":
+                return calls
+            getattr(self, "execute" if op == "execute_async" else op)(
+                *args, **kw)
+            calls += 1
+
+    def close(self) -> None:
+        """On the mesh's first rank: release the other ranks from
+        `serve_worker`. A no-op without a mesh."""
+        if self._send is not None:
+            self._send("close", (), {})
+            self._send = None
+
+    @_mirrored
     def reset_caches(self) -> None:
         """Zero every cache leaf in place, trash page or position included
         (the lockstep prefill contract), and drop swapped page contents:
@@ -354,7 +474,8 @@ class ModelRunner:
             binary=self.scfg.binary, state_tables=v.get("state"),
             zero_fresh=False, logits_mode="last",
             frames=self._frames if frames else None,
-            frames_rows=v["frames"] != 0 if frames else None)
+            frames_rows=v["frames"] != 0 if frames else None,
+            group=self.group)
 
     def _capture(self, kind: str) -> _Graph:
         """A kind's first use: one warm-up run (on a side stream, as
@@ -445,6 +566,7 @@ class ModelRunner:
             if zero.size and layers:
                 self._state_zero(zero, layers)
 
+    @_mirrored
     def prefill_step(self, tokens: np.ndarray, pos: np.ndarray,
                      active: np.ndarray, n_valid: np.ndarray,
                      block_tables: np.ndarray | None,
@@ -485,6 +607,7 @@ class ModelRunner:
         self.stats["prefill_tokens"] += int(np.asarray(n_valid).sum())
         return logits
 
+    @_mirrored
     def decode_step(self, tokens: np.ndarray, pos: np.ndarray,
                     active: np.ndarray,
                     block_tables: np.ndarray | None,
@@ -530,6 +653,7 @@ class ModelRunner:
         in emission order."""
         return self.wait(self.execute_async(plan))
 
+    @_mirrored
     def execute_async(self, plan: SchedulePlan) -> _PendingStep:
         """Enqueue one plan without the final host sync: swap transfers,
         prefill chunks (whose completion samples are drawn here: the
@@ -636,14 +760,17 @@ class ModelRunner:
                         ) -> int:
         """Append, per layer, each leaf's rows `idx` (an `index_select`:
         stream order snapshots them before any later write), sent on the
-        card to pinned host memory by a non-blocking copy. Returns the
-        bytes."""
+        card to pinned host memory by a non-blocking copy. Under a mesh a
+        head-sharded leaf's rows are gathered over the ranks' heads first,
+        so every rank stores the full logical rows. Returns the bytes."""
         cuda = self.device.type == "cuda"
         nbytes = 0
         for i in layers:
             taken = {}
             for name, leaf in self.caches[i].items():
                 part = leaf.index_select(0, idx)
+                if self._head_sharded(name):
+                    part = collectives.all_gather_heads(part, self.group)
                 if cuda:
                     host = torch.empty(part.shape, dtype=part.dtype,
                                        pin_memory=True)
@@ -657,12 +784,19 @@ class ModelRunner:
     def _scatter_from_host(self, layers, idx: torch.Tensor,
                            stored: list) -> int:
         """The inverse of `_gather_to_host`: `index_copy_` each layer's
-        stored rows back into rows `idx`, in place. Returns the bytes."""
+        stored rows (under a mesh, this rank's heads of them) back into
+        rows `idx`, in place. Returns the bytes."""
         nbytes = 0
         for i, taken in zip(layers, stored):
             for name, blob in taken.items():
+                part = blob
+                if self._head_sharded(name):
+                    part = sharding.shard_tensor(
+                        blob, sharding.serve_cache_spec(
+                            name, blob.shape, self.mesh, head_axis=1),
+                        self.mesh, self.mesh.rank)
                 self.caches[i][name].index_copy_(
-                    0, idx, blob.to(self.device, non_blocking=True))
+                    0, idx, part.to(self.device, non_blocking=True))
                 nbytes += blob.numel() * blob.element_size()
         return nbytes
 

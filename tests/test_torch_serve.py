@@ -8,8 +8,8 @@ Engine against the JAX Engine on reduced smollm-135m (paged, dense and
 page-sparse). The JAX side runs its Pallas kernels in interpret mode, as
 its own serving tests do. Also, inside the port: ragged == sequential
 (with prefix caching, page-sparse decode and recompute preemption), dense
-== paged bit for bit, the unported features raising, the default device
-refusing to fall back to the CPU, and the package importing no JAX. The
+== paged bit for bit, the default device refusing to fall back to the
+CPU, and the package importing no JAX. The
 full-precision baseline's tests are in test_torch_baseline.py; swap-out
 preemption's in test_torch_swap.py; pipelined and asyncio serving's, and
 the rest of the Engine surface's, in test_torch_pipelined.py.
@@ -445,13 +445,6 @@ def test_copied_scheduler_plans_equal_reference(kw, reclaims):
 # what this slice refuses, and how it picks the device
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
-def test_unported_serving_features_raise(kw):
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tcfg, _model(), _scfg(ServeConfig, 2, **kw), device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b",
                                   "dbrx-132b"])
 def test_ssm_and_moe_layer_patterns_build_from_jax(arch):
@@ -581,6 +574,9 @@ def test_port_imports_no_jax():
         "        'repro_torch.data.pipeline', 'repro_torch.train.steps',\n"
         "        'repro_torch.train.loop', 'repro_torch.checkpoint.manager',\n"
         "        'repro_torch.distributed.compression',\n"
+        "        'repro_torch.distributed.sharding',\n"
+        "        'repro_torch.distributed.collectives',\n"
+        "        'repro_torch.launch.mesh',\n"
         "        'repro_torch.models.model', 'repro_torch.launch.train']\n"
         "assert all(m in sys.modules for m in need), need\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
