@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the hand-written CUDA kernels from the sources in this checkout and
-runs eleven phases; any failure exits non-zero before the result line.
+runs twelve phases; any failure exits non-zero before the result line.
 
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernel build time (one nvcc per source, started together).
@@ -179,13 +179,40 @@ runs eleven phases; any failure exits non-zero before the result line.
    host ms of prefill and decode steps, tok/s and the collectives staged
    through host memory are printed beside the card. A rank that fails or
    outlasts TP_TIMEOUT_S fails the phase.
+12. The examples and the production mesh. (b) runs in a subprocess
+   started after phase 11, beside (a) and (c): ``python -m
+   repro_torch.launch.dryrun --all --mesh both --device meta``, the ten
+   assigned archs x four shapes priced per chip on 16x16 and 2x16x16: 80
+   records, none an error, printed as the markdown table. K1-K4 against
+   their plain versions at the long-context example's shapes (4 query
+   heads over 2 kv heads, d 32, float32 V, top-N 61; 128-query chunks
+   over a 525-position dense cache, 2 slots over 9 pages of 64; K3 exact
+   at n_sel 4 and 9): four kernel records whose launches are the five
+   long-context runs' below. (a) The three examples' PyTorch twins on
+   the card at the JAX examples' sizes, each checking itself:
+   ``torch_quickstart``; ``torch_long_context_serve`` with no flag,
+   --paged, --prefix-cache, --swap-pages 16 and --page-topn 4 (the
+   launch counts zeroed just before each run and read after it: K1 and
+   K4 in every run (the sequential check serves the dense cache), K2 in
+   the paged ones, K3 in the page-topn one; each run's tokens' sha1);
+   and ``torch_distill_encoder`` in full (400 teacher steps, 40 a stage),
+   the teacher's and the student's accuracies; wall times of each. (a')
+   That example's teacher once more on the card and on the CPU from the
+   same seeds, and the card's teacher distilled on both (the CPU's on the
+   CPU), every step's loss recorded: where the runs part, in which
+   stage, and every accuracy. (c) smollm-135m's train_4k
+   dry-run cell on the card at phase 10's batch (2), the distill
+   attention in float32 and in bfloat16 (``--attn-dtype``): step s, peak
+   memory, a finite loss (with ``--profile``, one more step of each
+   profiled: kernel time by group, `_busy_share`).
 
 `--profile DIR` profiles the prefill of one 3072-token prompt and decode
 windows of the paged, the dense, the full-precision paged and the
 page_topn-64 engine (the last unfused and fused in turn), all graphed,
 after phase 5; a prefill and a decode window of phase 6's paged vision
-engine; and a decode window each of phase 7's and phase 8's paged
-engines.
+engine; a decode window each of phase 7's and phase 8's paged
+engines; and one train_4k step each of phase 12 (c), float32 and bf16
+(kernel time by group, printed).
 Then the kernel record line and, last, the result line.
 """
 from __future__ import annotations
@@ -234,6 +261,13 @@ K3_DBRX = "binary_page_score[dbrx]"
 K4_DBRX = "binary_decode_attention[dbrx self]"
 MAMBA = "mamba2-130m"
 JAMBA = "jamba-1.5-large-398b"
+# phase 12's records: the kernels at examples/torch_long_context_serve.py's
+# shapes
+K1_EX = "binary_prefill_attention[long-context example]"
+K2_EX = "binary_paged_decode_attention[long-context example]"
+K3_EX = "binary_page_score[long-context example]"
+K4_EX = "binary_decode_attention[long-context example]"
+TF32_TENSOR_OPS_PER_S = 495e12    # H100 SXM data sheet, dense, at 700 W
 # phase 11's records: the kernels at a tensor-parallel rank's shapes
 K1_TP = "binary_prefill_attention[smollm tp3 rank]"
 K2_TP = "binary_paged_decode_attention[smollm tp3 rank]"
@@ -836,7 +870,8 @@ DBRX_SHAPES = dict(h=48, hk=8, tag="dbrx", names=dict(
     k1=K1_DBRX, k2=K2_DBRX, k3=K3_DBRX, k4=K4_DBRX))
 
 
-def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal, window=None):
+def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal, window=None,
+             v_bytes: int = 2, ev_rate: float | None = None):
     """(bytes, ops) the prefill function needs for these inputs, from
     their shapes: q [BH, S, W], k [BHk, T, W], V width dv, per-row
     kv_length / q_offset / q_length. Bytes: the live queries' words, the
@@ -846,7 +881,9 @@ def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal, window=None):
     on the bf16 tensor cores, three bf16 products a multiply-add (E as
     e0 + e1 + e2). The pairs are counted `window` queries at a time
     (default all S; a long call's score matrix does not fit at once):
-    valid and kept pairs summed, the keys any window uses OR-ed."""
+    valid and kept pairs summed, the keys any window uses OR-ed. Float32
+    V (`v_bytes` 4) runs E.V as 3xTF32 products: `ev_rate` the TF32
+    rate."""
     import torch
     from repro_torch.core import hamming, topn
     from repro_torch.kernels import binary_prefill_attention as pre
@@ -872,12 +909,15 @@ def _k1_work(q, k, dv, kvl, qoff, qlen, *, d, nsel, causal, window=None):
         n_kept += keep.sum().item()
         del sc, valid, keep
     nbytes = (qlen.sum().item() * w * 4 + kv_any.sum().item() * w * 4
-              + v_any.sum().item() * dv * 2 + bh * s * dv * 4 + 3 * bh * 4)
+              + v_any.sum().item() * dv * v_bytes + bh * s * dv * 4
+              + 3 * bh * 4)
     return nbytes, [(n_valid * (2 * w + 2), CUDA_CORE_OPS_PER_S),
-                    (3 * n_kept * 2 * (dv + 1), BF16_TENSOR_OPS_PER_S)]
+                    (3 * n_kept * 2 * (dv + 1),
+                     ev_rate or BF16_TENSOR_OPS_PER_S)]
 
 
-def _decode_rows_work(q, k_rows, lens, index_bytes, *, d, nsel, dv):
+def _decode_rows_work(q, k_rows, lens, index_bytes, *, d, nsel, dv,
+                      v_bytes: int = 2):
     """(bytes, ops) top-N decode needs for these inputs: q [R, G, W],
     k_rows [R, T, W] row-major, lens [R] valid keys a row; index_bytes of
     tables and counts, or lengths. Bytes: queries, every valid key's
@@ -892,7 +932,7 @@ def _decode_rows_work(q, k_rows, lens, index_bytes, *, d, nsel, dv):
     keep = topn.topn_mask_binary(s, nsel, d, valid=valid)
     n_keys = lens.sum().item()
     nbytes = (r * g * w * 4 + n_keys * w * 4
-              + keep.any(1).sum().item() * dv * 2 + index_bytes
+              + keep.any(1).sum().item() * dv * v_bytes + index_bytes
               + r * g * dv * 4)
     nops = keep.sum().item() * (2 * dv + 1) + n_keys * g * (2 * w + 2)
     return nbytes, [(nops, CUDA_CORE_OPS_PER_S)]
@@ -3459,6 +3499,388 @@ def profile_windows(engines: dict, out_dir: str) -> None:
         window(f"decode_4x3k_{name}_{i}", eng, 8, lambda: None, "K2")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the examples' twins, the production mesh, bf16 attention
+# ---------------------------------------------------------------------------
+
+LONG_FLAGS = {"dense": [], "paged": ["--paged"],
+              "prefix": ["--prefix-cache"], "swap": ["--swap-pages", "16"],
+              "topn": ["--page-topn", "4"]}
+MESH_TIMEOUT_S = 600.0
+
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _digest(tokens) -> str:
+    import numpy as np
+    h = hashlib.sha1()
+    for t in tokens:
+        h.update(np.asarray(t, np.int64).tobytes())
+    return h.hexdigest()[:12]
+
+
+def phase12_mesh_start():
+    """Start the production-mesh dry run in a subprocess: CPU work on the
+    meta device, started after phase 11 (whose host-clock times it would
+    disturb) to run beside phase 12 (a) and (c). Returns (process, its
+    output directory, its log file)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    code = ("import sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "from repro_torch.launch import dryrun\n"
+            "rc = dryrun.main(['--all', '--mesh', 'both', '--device', "
+            "'meta', '--out', sys.argv[1]])\n"
+            "print(f'mesh dry run: {time.perf_counter() - t0:.1f} s')\n"
+            "sys.exit(rc)\n")
+    log_f = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code, out], env=env,
+                            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out, log_f
+
+
+def phase12_mesh_finish(proc, out: str, log_f) -> None:
+    """(b): 80 records, none an error; the markdown table."""
+    from repro_torch.launch import dryrun as D
+    try:
+        proc.wait(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    log_f.seek(0)
+    text = log_f.read()
+    recs = []
+    for fn in sorted(os.listdir(out)):
+        with open(os.path.join(out, fn)) as f:
+            recs.append(json.load(f))
+    lines = text.strip().splitlines()
+    log(f"phase 12 (b): python -m repro_torch.launch.dryrun --all --mesh "
+        f"both --device meta, a subprocess beside phase 12: exit "
+        f"{proc.returncode}, {len(recs)} records; {'; '.join(lines[-2:])}")
+    check(proc.returncode == 0 and len(recs) == 80, text[-3000:])
+    check(not [r for r in recs if r["status"] == "error"], text[-3000:])
+    order = {m: i for i, m in enumerate(("16x16", "2x16x16"))}
+    recs.sort(key=lambda r: (r["arch"], r["shape"], order[r["mesh"]]))
+    log("phase 12 (b): per-chip pricing (compute and HBM: the meta count, "
+        "a lower bound; collectives at NVLink 450 GB/s in a node, 50 GB/s "
+        "a GPU across nodes)\n" + D.mesh_table(recs))
+
+
+def phase12_records(gen) -> dict:
+    """K1-K4 at the long-context example's shapes (its CFG: 4 query heads
+    over 2 kv heads of width 32 -> 1 word, float32 V, top-N 61 at 524
+    positions; 2 slots, 128-query chunks, 64-token pages, 9-block tables,
+    a dense cache of 525 positions with the trash one), each against its
+    plain version at phase 2's tolerances (K3's bounds, tables, counts and
+    logical ids exactly, at n_sel 4 and 9), timed (K3 by device time),
+    with its bound and host time. K1: slot 0's last chunk of the 512-token
+    prompt and slot 1's second of the 256-token one; K2 and K4 at decode
+    lengths 520 and 262, K2 over shuffled pages."""
+    import torch
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention_block import gather_pages
+    ex = _example("torch_long_context_serve")
+    cfg, ctx = ex.CFG, ex.CTX + ex.GEN
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    g, w, dv = h // hk, d // 32, d
+    nsel, scale, page, chunk, b = cfg.had.topn(ctx), d ** -0.5, 64, 128, 2
+    nb = -(-ctx // page)
+    t = ctx + 1
+    f32 = dict(v_bytes=4)
+    records = {}
+
+    def rows(vals):
+        return torch.tensor(vals, dtype=torch.int32,
+                            device="cuda").repeat_interleave(h)
+
+    q = _bits((b * h, chunk, d), gen)
+    k = _bits((b * hk, t, d), gen)
+    v = torch.randn((b * hk, t, dv), generator=gen, device="cuda")
+    qoff, qlen = rows([384, 128]), rows([chunk, chunk])
+    kw = dict(d=d, nsel=nsel, scale=scale, kv_length=qoff + qlen,
+              q_offset=qoff, q_length=qlen, causal=True)
+
+    def k1():
+        return pre.prefill_attention(q, k, v, group_size=g, n_kv_heads=hk,
+                                     **kw)
+    got, want = k1(), ref.prefill_attention_ref(q, k, v, group_size=g, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    records[K1_EX] = _record(
+        pre, "src/repro/kernels/binary_prefill_attention.py:106",
+        (got - want).abs().max().item(), cuda_ms(k1, iters=50),
+        cuda_ms(lambda: ref.prefill_attention_ref(
+            q, k, v, group_size=g, **kw), iters=5, warmup=1),
+        _k1_work(q, k, dv, qoff + qlen, qoff, qlen, d=d, nsel=nsel,
+                 causal=True, ev_rate=TF32_TENSOR_OPS_PER_S, **f32),
+        host_us(k1), name=K1_EX)
+
+    lens = torch.tensor([520, 262], dtype=torch.int32, device="cuda")
+    n_pages = b * nb
+    qd = _bits((b, h, d), gen)
+    k_pool = _bits((n_pages + 1, hk, page, d), gen).transpose(-1, -2) \
+        .contiguous()
+    v_pool = torch.randn((n_pages + 1, hk, page, dv), generator=gen,
+                         device="cuda")
+    bt = torch.randperm(n_pages, generator=gen, device="cuda").reshape(
+        b, nb).to(torch.int32)
+    bt = torch.where(torch.arange(nb, device="cuda")[None]
+                     < ((lens + page - 1) // page)[:, None], bt, -1)
+    kw = dict(d=d, nsel=nsel, scale=scale)
+    got = ops.paged_decode_attention(qd, k_pool, v_pool, bt, lengths=lens,
+                                     **kw)
+    want = ref.paged_decode_attention_ref(
+        qd.reshape(b, hk, g, w), k_pool, v_pool, bt, lengths=lens,
+        **kw).reshape(b, h, dv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    bt_rows, counts, len_f = ops._row_tables(bt, lens, hk, page)
+    qf = qd.reshape(b * hk, g, w).contiguous()
+
+    def k2():
+        return pdec.paged_decode_attention(qf, k_pool, v_pool, bt_rows,
+                                           counts, **kw)
+    k_rows = gather_pages(k_pool, bt.clamp_min(0), 3).transpose(-1, -2) \
+        .reshape(b * hk, nb * page, w)
+    records[K2_EX] = _record(
+        pdec, "src/repro/kernels/binary_paged_decode_attention.py:109",
+        (got - want).abs().max().item(), cuda_ms(k2, iters=200),
+        cuda_ms(lambda: ref.paged_decode_attention_rows_ref(
+            qf, k_pool, v_pool, bt_rows, counts, **kw), iters=5, warmup=1),
+        _decode_rows_work(qf, k_rows, len_f, 2 * b * hk * nb * 4, d=d,
+                          nsel=nsel, dv=dv, **f32),
+        host_us(k2), name=K2_EX)
+
+    for n_sel in (4, nb):
+        got = pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
+                                        d=d, page=page, n_sel=n_sel)
+        want = ref.paged_select_pages_ref(qf, k_pool, bt_rows, counts,
+                                          len_f, d=d, page=page, n_sel=n_sel)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"{K3_EX} tables/counts/logical n_sel {n_sel}")
+
+    def k3():
+        return pscore.paged_select_pages(qf, k_pool, bt_rows, counts, len_f,
+                                         d=d, page=page, n_sel=4)
+    n_keys = len_f.sum().item()
+    r = b * hk
+    records[K3_EX] = _record(
+        pscore, "src/repro/kernels/binary_page_score.py:68", 0.0,
+        device_ms(k3), cuda_ms(lambda: ref.paged_select_pages_ref(
+            qf, k_pool, bt_rows, counts, len_f, d=d, page=page, n_sel=4),
+            iters=10, warmup=2),
+        (r * g * w * 4 + n_keys * w * 4 + 2 * r * nb * 4 + r * 4
+         + 3 * r * 4 * 4,
+         [(n_keys * w * 2 + r * nb * g * w * 6, CUDA_CORE_OPS_PER_S)]),
+        host_us(k3), name=K3_EX)
+
+    qd = _bits((r, g, d), gen)
+    k = _bits((r, t, d), gen)
+    planes = k.transpose(-1, -2).contiguous()
+    v = torch.randn((r, t, dv), generator=gen, device="cuda")
+
+    def k4():
+        return dec.decode_attention(qd, planes, v, len_f, **kw)
+    got, want = k4(), ref.decode_attention_ref(qd, k, v, lengths=len_f,
+                                               **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    records[K4_EX] = _record(
+        dec, "src/repro/kernels/binary_decode_attention.py:122",
+        (got - want).abs().max().item(), cuda_ms(k4, iters=200),
+        cuda_ms(lambda: ref.decode_attention_ref(qd, k, v, lengths=len_f,
+                                                 **kw), iters=5, warmup=1),
+        _decode_rows_work(qd, k, len_f, r * 4, d=d, nsel=nsel, dv=dv, **f32),
+        host_us(k4), name=K4_EX)
+    return records
+
+
+def phase12_examples() -> dict:
+    """(a): the three twins on the card at the JAX examples' sizes.
+    Returns the long-context runs' launches by phase 12's record."""
+    from repro_torch.kernels import binary_decode_attention as dec
+    from repro_torch.kernels import binary_page_score as pscore
+    from repro_torch.kernels import binary_paged_decode_attention as pdec
+    from repro_torch.kernels import binary_prefill_attention as pre
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    q = _example("torch_quickstart").main(["--device", "cuda"])
+    counts = ops.launch_counts()
+    log(f"phase 12 (a) quickstart: {time.perf_counter() - t0:.1f} s, "
+        f"sigma_q {q['sigma_q']:.6f}, HAD tokens sha1 {_digest(q['had'])}, "
+        f"fp {_digest(q['fp'])}, agreement {q['agree']:.2f}, launches "
+        f"{counts}")
+    check(counts[pre.NAME] > 0 and counts[dec.NAME] > 0, counts)
+    long_mod = _example("torch_long_context_serve")
+    names = {pre.NAME: K1_EX, pdec.NAME: K2_EX, pscore.NAME: K3_EX,
+             dec.NAME: K4_EX}
+    launches = {k: 0 for k in names.values()}
+    for name, flags in LONG_FLAGS.items():
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        r = long_mod.main(["--device", "cuda"] + flags)
+        counts = ops.launch_counts()
+        want = {pre.NAME, dec.NAME}
+        if flags:
+            want.add(pdec.NAME)
+        if name == "topn":
+            want.add(pscore.NAME)
+        log(f"phase 12 (a) long_context_serve {' '.join(flags) or '(dense)'}"
+            f": {time.perf_counter() - t0:.1f} s, tokens sha1 "
+            f"{_digest(r['tokens'])}, launches {counts}")
+        check(all(counts[k] > 0 for k in want), (name, counts, want))
+        check(all(counts[k] == 0 for k in counts if k not in want),
+              (name, counts, want))
+        for k, rec in names.items():
+            launches[rec] += counts[k]
+        _free()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    res = _example("torch_distill_encoder").run("cuda")
+    log(f"phase 12 (a) distill_encoder: {time.perf_counter() - t0:.1f} s "
+        f"(teacher {res['teacher_s']:.1f} s, distillation "
+        f"{res['distill_s']:.1f} s), teacher accuracy "
+        f"{res['teacher_acc']:.3f}, HAD student accuracy "
+        f"{res['student_acc']:.3f}, launches {ops.launch_counts()}")
+    _free()
+    phase12_distill_devices()
+    _free()
+    return launches
+
+
+def phase12_distill_devices() -> None:
+    """(a'): ``torch_distill_encoder``'s teacher trained on the card and
+    on the CPU from the same seeded weights and batches, and the "had"
+    distillation of the card's teacher on both devices and of the CPU's
+    teacher on the CPU, every step's loss recorded: where the teachers
+    part and how far their weights end apart; where the two distillations
+    of one teacher part (loss more than 1e-4 relative apart) and in which
+    stage; each teacher's and each student's accuracy. Checks only that
+    every loss is finite: the point is where the runs part."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.core.distill import tiny_schedule
+    from repro_torch.models import transformer as T
+    tw = _example("torch_distill_encoder")
+    sps = 40
+    sched = tiny_schedule(sps)
+    t0 = time.perf_counter()
+    teachers, t_loss, t_acc = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        tl = []
+        teachers[dev] = tw.train_teacher(
+            tw.CFG, tw.task(0), dev, steps=400, lr=1e-3,
+            on_step=lambda i, loss, p: tl.append(loss.detach()))
+        t_loss[dev] = torch.stack(tl).cpu().numpy()
+        t_acc[dev] = tw.evaluate(tw.CFG, teachers[dev], tw.task(99), dev,
+                                 n_batches=tw.EVAL_BATCHES)
+    w_diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        T.named_tensors(teachers["cuda"]).values(),
+        T.named_tensors(teachers["cpu"]).values()))
+    d_loss, s_acc = {}, {}
+    for src, dev in (("cuda", "cuda"), ("cuda", "cpu"), ("cpu", "cpu")):
+        dl = []
+        res = tw.distill_had(
+            tw.CFG, copy.deepcopy(teachers[src]).to(dev), tw.task(0), dev,
+            topn=tw.TOPN, steps_per_stage=sps, eval_task=tw.task(99),
+            eval_batches=tw.EVAL_BATCHES,
+            on_step=lambda i, loss, own: dl.append(loss.detach()))
+        d_loss[src, dev] = torch.stack(dl).cpu().numpy()
+        s_acc[src, dev] = res.accuracy
+    check(all(np.isfinite(x).all() for x in [*t_loss.values(),
+                                            *d_loss.values()]), "losses")
+
+    def parting(a, b, tol):
+        rel = np.abs(a - b) / np.abs(b)
+        over = np.flatnonzero(rel > tol)
+        return (int(over[0]) if over.size else None), float(rel.max())
+    t_first, t_max = parting(t_loss["cuda"], t_loss["cpu"], 1e-5)
+    d_first, d_max = parting(d_loss["cuda", "cuda"], d_loss["cuda", "cpu"],
+                             1e-4)
+    stage = (f" (stage {int(sched.stage_at(d_first))})"
+             if d_first is not None else "")
+    log(f"phase 12 (a') distill_encoder, the same seeds on the card and "
+        f"the CPU: teachers' losses part (1e-5 relative) at step "
+        f"{t_first} of {len(t_loss['cpu'])}, {t_max:.2e} at most, weights "
+        f"{w_diff:.2e} apart at the end; teacher accuracy card "
+        f"{t_acc['cuda']:.4f} / CPU {t_acc['cpu']:.4f}. Distilling the "
+        f"card's teacher (stages end at steps {sched.stage1_end}, "
+        f"{sched.stage2_end}, {sched.stage3_end}, {sched.stage4_end}) on "
+        f"the card and on the CPU: losses part (1e-4) at step {d_first}"
+        f"{stage}, {d_max:.2e} at most; student accuracy card "
+        f"{s_acc['cuda', 'cuda']:.4f} / CPU {s_acc['cuda', 'cpu']:.4f}. "
+        f"The CPU's teacher distilled on the CPU: "
+        f"{s_acc['cpu', 'cpu']:.4f}. {time.perf_counter() - t0:.1f} s")
+
+
+def phase12_bf16(card: str, profile: bool = False) -> None:
+    """(c): smollm-135m's train_4k cell on the card at phase 10's batch,
+    the distill attention in float32 and then bfloat16; with `profile`
+    (``--profile``), one more step of each profiled (kernel time by
+    group, ~1 min each)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    batch = DRYRUN_BATCH["train_4k"]
+    cfg, shape = get_config(SMOLLM), M.SHAPES["train_4k"]
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        t0 = time.perf_counter()
+        rec = D.run_cell(SMOLLM, "train_4k", batch=batch, attn_dtype=dt)
+        check(rec["status"] == "ok", rec.get("trace"))
+        log(f"phase 12 (c) {SMOLLM} train_4k batch {batch} attn {tag}: "
+            f"step {rec['step_s']:.4f} s, peak "
+            f"{rec['memory']['peak_memory_in_bytes'] / 2**30:.3f} GiB, "
+            f"counted flops {rec['roofline']['flops']:.4e} bytes "
+            f"{rec['roofline']['bytes_hbm']:.4e}, {card}")
+        _free()
+        if not profile:
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step, _ = D._train_runner(cfg, shape, batch, torch.device("cuda"),
+                                  gen, None, dt)
+        log(f"phase 12 (c) {SMOLLM} train_4k batch {batch} attn {tag}, one "
+            f"more step profiled: {_busy_share(step)}; the cell and the "
+            f"profile {time.perf_counter() - t0:.1f} s")
+        del step
+        _free()
+
+
+def phase12(card: str, records: dict, mesh: tuple,
+            profile: bool = False) -> dict:
+    """Phase 12 (the module docstring); `mesh` is (b)'s subprocess, started
+    after phase 11 (`phase12_mesh_start`). Adds the kernels' records at
+    the long-context example's shapes to `records` and returns their
+    launches."""
+    import torch
+    t0 = time.perf_counter()
+    records.update(phase12_records(
+        torch.Generator(device="cuda").manual_seed(12)))
+    _free()
+    launches = phase12_examples()
+    phase12_bf16(card, profile)
+    phase12_mesh_finish(*mesh)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _free() -> None:
     """Return the memory of dropped engines and models to the card."""
     import gc
@@ -3472,7 +3894,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="profile prefill and decode windows of the "
-                         "full-size engines of phases 4-8 into DIR")
+                         "full-size engines of phases 4-8 into DIR, and "
+                         "phase 12 (c)'s train steps")
     args = ap.parse_args()
     try:
         import torch
@@ -3493,6 +3916,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
     weights_dir = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    mesh = None
     try:
         card = phase1()
         records = phase2()
@@ -3530,11 +3954,21 @@ def main() -> int:
         phase10(records, counts)
         _free()
         counts.update(phase11(card, digests, weights_dir, records))
+        _free()
+        mesh = phase12_mesh_start()
+        counts.update(phase12(card, records, mesh,
+                              profile=args.profile is not None))
     except Exception:
         traceback.print_exc()
         return 1
     finally:
         shutil.rmtree(weights_dir, ignore_errors=True)
+        if mesh is not None:
+            if mesh[0].poll() is None:
+                mesh[0].kill()
+            mesh[0].wait()
+            mesh[2].close()
+            shutil.rmtree(mesh[1], ignore_errors=True)
     for name, rec in records.items():
         rec["launches"] = counts[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -13,9 +13,9 @@ the axis size divides it.
 Two rule sets, as in the JAX package:
 
 * training (`param_spec`, `cache_spec`, `batch_spec`): FSDP over
-  ("pod", "data") and TP over "model" on the production mesh. No caller
-  runs them yet; they are here so the dry run can price per-chip memory
-  from them (ROADMAP.md item 2b).
+  ("pod", "data") and TP over "model" on the production mesh. The dry
+  run prices each cell's per-chip memory and collectives from them
+  (``launch.mesh_cost``); nothing shards a tensor by them.
 * tensor-parallel serving (`serve_param_spec`, `serve_cache_spec`), the
   exact-parity layout the runner uses: wq / wk / wv sharded on the
   head-output dim, the k_bits / k / v cache leaves on the kv-head axis,

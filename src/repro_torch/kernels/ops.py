@@ -9,6 +9,16 @@ kernel's plain version from ``repro_torch.kernels.ref`` on the same
 inputs. Each entry reports its kernel's work through ``kernels.cost``
 from shapes and lengths, so a counted step gives the same flops and bytes
 on either device.
+
+Meta tensors (the dry run's production-mesh count, which builds the step
+without storage) get empty outputs of the right shape and dtype, and the
+work of a fully valid call, from shapes alone, since no length can be
+read: a decode over every position of the cache but a dense
+self-attention cache's last, its trash position (every position of a
+cross cache); a causal prefill of a whole prompt from position 0 (kv
+length = queries = the chunk), a non-causal one of every query over every
+key; every listed page full. Those are the dry run's cells: whole
+prompts, decode at position seq_len - 1.
 """
 from __future__ import annotations
 
@@ -89,7 +99,9 @@ def hamming_scores(q_bits: torch.Tensor, k_bits: torch.Tensor, d: int, *,
     kf = k_bits.reshape(-1, n, w)
     with _cost.kernel(_hs.NAME, lambda: _cost.k5_work(
             batch=qf.shape[0], m=m, n=n, w=w)):
-        if not q_bits.is_cuda:
+        if q_bits.is_meta:
+            out = qf.new_empty((qf.shape[0], m, n))
+        elif not q_bits.is_cuda:
             out = ref.hamming_score_ref(qf, kf, d)
         else:
             out = _hs.hamming_score(qf.contiguous(), kf.contiguous(), d,
@@ -119,8 +131,11 @@ def decode_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
     len_f = torch.repeat_interleave(_per_slot(lengths, b, q_bits.device), hk)
     with _cost.kernel(_dec.NAME, lambda: _cost.k4_work(
             rows=b * hk, g=g, w=w, dv=dv, v_bytes=v.element_size(),
-            lengths=len_f.clamp(0, t).cpu().numpy())):
-        if not q_bits.is_cuda:
+            lengths=([t if cross else t - 1] * (b * hk) if q_bits.is_meta
+                     else len_f.clamp(0, t).cpu().numpy()))):
+        if q_bits.is_meta:
+            out = v.new_empty((b * hk, g, dv), dtype=torch.float32)
+        elif not q_bits.is_cuda:
             k_rows = to_bitplanes(k_bits) if bitplanes else k_bits
             out = ref.decode_attention_ref(
                 qf, k_rows.reshape(b * hk, t, w), vf, d=d, nsel=nsel,
@@ -161,6 +176,9 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
     lengths = _per_slot(lengths, b, q_bits.device)
     bt_rows, counts, len_f = _row_tables(block_tables, lengths, hk, page)
     r, nb = bt_rows.shape
+    if q_bits.is_meta:
+        return _paged_decode_meta(q_bits, v_pool, r, nb, page, g, w,
+                                  page_topn)
     if page_topn is not None and page_topn < nb:
         select = (_pscore.paged_select_pages if q_bits.is_cuda
                   else ref.paged_select_pages_ref)
@@ -182,6 +200,24 @@ def paged_decode_attention(q_bits: torch.Tensor, k_pool: torch.Tensor,
             out = _pdec.paged_decode_attention(
                 qf, k_pool, v_pool, bt_rows, counts, d=d, nsel=nsel,
                 scale=scale)
+    return out.reshape(b, h, -1)
+
+
+def _paged_decode_meta(q_bits, v_pool, r: int, nb: int, page: int, g: int,
+                       w: int, page_topn: int | None) -> torch.Tensor:
+    """`paged_decode_attention` on meta: every listed page full."""
+    full = [[page] * nb] * r
+    if page_topn is not None and page_topn < nb:
+        with _cost.kernel(_pscore.NAME, lambda: _cost.k3_work(
+                rows=r, g=g, w=w, nb=nb, n_sel=page_topn, counts=full)):
+            nb = page_topn
+        full = [[page] * nb] * r
+    dv = v_pool.shape[-1]
+    with _cost.kernel(_pdec.NAME, lambda: _cost.k2_work(
+            rows=r, g=g, w=w, dv=dv, v_bytes=v_pool.element_size(), nb=nb,
+            counts=full)):
+        out = v_pool.new_empty((r, g, dv), dtype=torch.float32)
+    b, h = q_bits.shape[:2]
     return out.reshape(b, h, -1)
 
 
@@ -208,12 +244,18 @@ def prefill_attention(q_bits: torch.Tensor, k_bits: torch.Tensor,
     qf = q_bits.reshape(b * h, s, w)
     kf = k_bits.reshape(b * hk, t, w)
     vf = v.reshape(b * hk, t, dv)
+    if q_bits.is_meta:
+        full = {"kv_length": [s if causal else t] * (b * h),
+                "q_offset": [0] * (b * h), "q_length": [s] * (b * h)}
     with _cost.kernel(_pre.NAME, lambda: _cost.k1_work(
             rows=b * h, s=s, w=w, dv=dv, v_bytes=v.element_size(),
-            group_size=g, kv_length=kv_len.clamp(0, t).cpu().numpy(),
-            q_offset=q_off.cpu().numpy(), q_length=q_len.cpu().numpy(),
-            causal=causal)):
-        if not q_bits.is_cuda:
+            group_size=g, causal=causal, **(full if q_bits.is_meta else dict(
+                kv_length=kv_len.clamp(0, t).cpu().numpy(),
+                q_offset=q_off.cpu().numpy(),
+                q_length=q_len.cpu().numpy())))):
+        if q_bits.is_meta:
+            out = v.new_empty((b * h, s, dv), dtype=torch.float32)
+        elif not q_bits.is_cuda:
             out = ref.prefill_attention_ref(
                 qf, kf, vf, d=d, nsel=nsel, scale=scale, kv_length=kv_len,
                 q_offset=q_off, group_size=g, q_length=q_len,

@@ -38,15 +38,30 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       --out out/dryrun                        # the full table
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
-      --table out/dryrun                      # its records, in markdown
+      --table out/dryrun [--mesh both]        # its records, in markdown
 
 ``--device cuda`` is the default and raises with no card; ``--device
 meta`` stops after the fit check (no step, any machine); ``--device cpu``
 runs the step with the kernels' plain versions (small configs only).
-JAX's ``--mesh`` and ``--carry`` and its ``use_fsdp`` shard the step over
-the production mesh; they wait for per-chip memory priced from
-``distributed.sharding.param_spec`` on meta tensors (ROADMAP.md item
-2b).
+
+The production mesh (``--mesh single|multi|both``: 16x16 and 2x16x16, the
+JAX dry run's meshes) prices each cell per chip without running it
+(`run_mesh_cell`, ``launch.mesh_cost``): `mesh_prices` gives the
+arguments exactly, from the sharding rules on the meta build, FSDP as
+JAX's `use_fsdp` decides, and collective bytes from one formula per kind
+at an H100 cluster's link rates (``--carry sp|dp``: JAX's carry
+patterns); `mesh_terms` compute and HBM from the cell's step counted on
+the meta device. Status ok /
+does_not_fit as on one card, per chip. The record holds JAX's keys plus
+``fsdp`` and ``carry``. The default, ``--mesh card``, is the one-card run
+above, not JAX's "single": this port runs on one H100, and the card's
+records (``chip_smoke.py`` phase 10) are measured there, while a mesh
+record is priced. ``--attn-dtype bf16`` runs the distill attention's logit
+blocks in bfloat16 (JAX's ``set_attn_compute_dtype``), in the card's step
+and in the mesh count.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \
+      --device meta                           # 80 priced records
 """
 from __future__ import annotations
 
@@ -62,14 +77,17 @@ import torch
 
 from repro_torch.configs import ASSIGNED, get_config
 from repro_torch.core.distill import DistillConfig
+from repro_torch.launch import mesh_cost as MC
 from repro_torch.launch import op_cost
 from repro_torch.launch import roofline as RL
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adam
 from repro_torch.serve.runner import resolve_device
 from repro_torch.train import steps as TS
+from repro_torch.train.steps import ATTN_DTYPES
 
 MESH = "1xH100"
 FIT_SHARE = 0.75          # of RL.HBM_BYTES for the step's arguments
@@ -227,19 +245,23 @@ def _serve_runner(cfg, shape, batch, device, gen):
     return step, {"binary": binary, "topn": n}
 
 
-def _train_runner(cfg, shape, batch, device, gen, threshold_method):
-    distill = is_distill(cfg)
-    accum = default_grad_accum(batch)
+def _step_fn(cfg, shape, accum, threshold_method, attn_dtype):
     step_cfg = TS.StepConfig(grad_accum=accum)
-    state = {"now": train_state(cfg, device, gen)}
-    if distill:
-        step_fn = TS.build_distill_step(
+    if is_distill(cfg):
+        return TS.build_distill_step(
             cfg, DistillConfig(), opt_config(cfg), step_cfg,
             topn=cfg.had.topn(shape.seq_len),
-            threshold_method=threshold_method)
-    else:
-        step_fn = TS.build_pretrain_step(cfg, opt_config(cfg),
-                                         lambda s: 1e-5, step_cfg)
+            threshold_method=threshold_method, attn_dtype=attn_dtype)
+    return TS.build_pretrain_step(cfg, opt_config(cfg), lambda s: 1e-5,
+                                  step_cfg)
+
+
+def _train_runner(cfg, shape, batch, device, gen, threshold_method,
+                  attn_dtype):
+    distill = is_distill(cfg)
+    accum = default_grad_accum(batch)
+    state = {"now": train_state(cfg, device, gen)}
+    step_fn = _step_fn(cfg, shape, accum, threshold_method, attn_dtype)
     inputs = _inputs(cfg, shape, batch, device, gen)
 
     def step():
@@ -256,7 +278,8 @@ def _sync(device) -> None:
 def run_cell(arch: str, shape_name: str, *, device="cuda",
              batch: int | None = None, shape: M.ShapeSpec | None = None,
              cfg: ModelConfig | None = None, q_block: int | None = None,
-             threshold_method: str | None = None) -> dict:
+             threshold_method: str | None = None,
+             attn_dtype: torch.dtype = torch.float32) -> dict:
     """One (arch, shape) cell's record (see the module docstring).
     `shape` / `cfg` override the registry's (tests run reduced configs at
     tiny shapes)."""
@@ -296,7 +319,7 @@ def run_cell(arch: str, shape_name: str, *, device="cuda",
         t0 = time.perf_counter()
         if shape.kind == "train":
             step, extra = _train_runner(cfg, shape, run_batch, device, gen,
-                                        threshold_method)
+                                        threshold_method, attn_dtype)
         else:
             step, extra = _serve_runner(cfg, shape, run_batch, device, gen)
         _sync(device)
@@ -340,10 +363,205 @@ def run_cell(arch: str, shape_name: str, *, device="cuda",
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the production mesh: priced, not run
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _meta_inputs(cfg: ModelConfig, shape: M.ShapeSpec, batch: int) -> dict:
+    return {name: torch.empty(spec.shape, dtype=spec.dtype, device=META)
+            for name, spec in M.input_specs(
+                cfg, shape, batch_override=batch).items()}
+
+
+def _at_depth(cfg: ModelConfig, groups: int) -> ModelConfig:
+    return dataclasses.replace(cfg, n_layers=groups * cfg.group_size)
+
+
+def over_groups(cfg: ModelConfig, count_at) -> tuple[float, float]:
+    """count_at(cfg) -> (flops, bytes) at the config's full depth, from
+    its counts at one and two layer groups: every group runs the same ops
+    on the same shapes (the pattern repeats, MoE positions included), so
+    a count is affine in the groups, exactly."""
+    if cfg.n_groups <= 2:
+        return count_at(cfg)
+    f1, b1 = count_at(_at_depth(cfg, 1))
+    f2, b2 = count_at(_at_depth(cfg, 2))
+    k = cfg.n_groups - 1
+    return f1 + k * (f2 - f1), b1 + k * (b2 - b1)
+
+
+def _counted(fn) -> tuple[float, float]:
+    with op_cost.Counter() as c:
+        fn()
+    return c.cost.flops, c.cost.bytes
+
+
+def meta_train_state(cfg: ModelConfig) -> dict:
+    """The train state on the meta device, its step counter on the host:
+    a meta tensor holds no value, and the step reads its step (the
+    cell's first, 0) to pick the stage."""
+    state = train_state(cfg, META)
+    state["step"] = torch.zeros((), dtype=torch.int32)
+    return state
+
+
+def count_train_step(cfg: ModelConfig, shape: M.ShapeSpec, batch: int,
+                     accum: int, *, threshold_method=None,
+                     attn_dtype=torch.float32) -> tuple[float, float]:
+    """(flops, bytes) of one train step of `batch` sequences in `accum`
+    microbatches, run on the meta device under the counter."""
+    state = meta_train_state(cfg)
+    step = _step_fn(cfg, shape, accum, threshold_method, attn_dtype)
+    inputs = _meta_inputs(cfg, shape, batch)
+    return _counted(lambda: step(state, inputs))
+
+
+def count_update(cfg: ModelConfig) -> tuple[float, float]:
+    """(flops, bytes) of the AdamW update of the trainable tensors."""
+    state = meta_train_state(cfg)
+    own = (T.student_tensors(cfg, state["student"]) if "student" in state
+           else T.named_tensors(state["params"]))
+    grads = {n: torch.empty_like(t) for n, t in own.items()}
+    return _counted(lambda: adam.update(grads, state["opt"], own, lr=1e-5,
+                                        cfg=opt_config(cfg)))
+
+
+def count_serve_step(cfg: ModelConfig, shape: M.ShapeSpec,
+                     batch: int) -> tuple[float, float]:
+    """(flops, bytes) of one serve step of `batch` sequences on the meta
+    device: the whole prompt from position 0, or one token at
+    seq_len - 1."""
+    binary = is_distill(cfg)
+    model = T.Transformer(cfg, device=META)
+    caches = serve_caches(cfg, batch, shape.seq_len, META)
+    inputs = _meta_inputs(cfg, shape, batch)
+    pos = torch.full((batch,), 0 if shape.kind == "prefill"
+                     else shape.seq_len - 1, dtype=torch.int32, device=META)
+    tokens = inputs.get("tokens")
+    if tokens is None:
+        tokens = torch.empty(inputs["frames"].shape[:2], dtype=torch.int32,
+                             device=META)
+    return _counted(lambda: T.serve_step(
+        model, tokens, caches, pos=pos,
+        n=cfg.had.topn(shape.seq_len) if binary else 0, binary=binary,
+        logits_mode="last", image_embeds=inputs.get("image_embeds"),
+        frames=inputs.get("frames")))
+
+
+def mesh_terms(cfg: ModelConfig, shape: M.ShapeSpec, mesh, *,
+               threshold_method=None, attn_dtype=torch.float32
+               ) -> tuple[float, float]:
+    """Per-chip (flops, HBM bytes) of the cell's step on `mesh`, a lower
+    bound (``launch.mesh_cost``'s docstring): a data replica's step is
+    counted on meta (a train step as its microbatches of the replica's
+    sequences and one AdamW update; each count over the layer groups by
+    `over_groups`), the global step is the replicas' steps with one
+    update, and a chip does 1/chips of it."""
+    b, replicas = MC.replica_batch(shape, mesh)
+    if shape.kind == "train":
+        accum = MC.default_grad_accum(shape, mesh)
+        mb = max(b // accum, 1)
+        step = over_groups(cfg, lambda c: count_train_step(
+            c, shape, mb, 1, threshold_method=threshold_method,
+            attn_dtype=attn_dtype))
+        upd = over_groups(cfg, count_update)
+        total = [replicas * accum * (s - u) + u for s, u in zip(step, upd)]
+    else:
+        total = [replicas * x for x in over_groups(
+            cfg, lambda c: count_serve_step(c, shape, b))]
+    n = MC.chips(mesh)
+    return total[0] / n, total[1] / n
+
+
+def mesh_prices(cfg: ModelConfig, shape: M.ShapeSpec, mesh, *,
+                carry: str = "sp") -> tuple[bool, dict, int, MC.Collectives,
+                                            dict]:
+    """A cell's per-chip pricing on `mesh` without its step: (fsdp, the
+    argument bytes by part, saved carry bytes, collectives, the record's
+    distill / grad_accum or binary / topn)."""
+    if shape.kind == "train":
+        state = train_state(cfg, META)
+        distill = "teacher" in state
+        fsdp = MC.use_fsdp(cfg, train=True) if distill else True
+        accum = MC.default_grad_accum(shape, mesh)
+        parts = MC.train_parts(cfg, state, shape, mesh, fsdp=fsdp)
+        col, saved = MC.train_collectives(cfg, state, shape, mesh, fsdp=fsdp,
+                                          carry=carry, accum=accum)
+        return fsdp, parts, saved, col, {"distill": distill,
+                                         "grad_accum": accum}
+    fsdp = MC.use_fsdp(cfg, train=False)
+    params = T.named_tensors(T.Transformer(cfg, device=META))
+    caches = serve_caches(cfg, shape.global_batch, shape.seq_len, META)
+    parts = {"params": MC.tensor_bytes(cfg, params, mesh, fsdp=fsdp),
+             **MC.cache_parts(cfg, caches, shape, mesh),
+             "inputs": MC.input_bytes(cfg, shape, mesh)}
+    col = MC.serve_collectives(cfg, params, shape, mesh, fsdp=fsdp)
+    binary = is_distill(cfg)
+    return fsdp, parts, 0, col, {
+        "binary": binary, "topn": cfg.had.topn(shape.seq_len) if binary
+        else 0}
+
+
+def run_mesh_cell(arch: str, shape_name: str, *, multi_pod: bool,
+                  carry: str = "sp", attn_dtype: torch.dtype = torch.float32,
+                  threshold_method: str | None = None,
+                  cfg: ModelConfig | None = None,
+                  shape: M.ShapeSpec | None = None, mesh=None) -> dict:
+    """One cell priced on the production mesh (see the module docstring
+    and ``launch.mesh_cost``); `mesh` overrides the production mesh
+    (tests price tiny configs on small meshes)."""
+    cfg = get_config(arch) if cfg is None else cfg
+    shape = M.SHAPES[shape_name] if shape is None else shape
+    mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
+    rec = {"arch": arch, "shape": shape_name, "mesh": MC.mesh_name(mesh),
+           "device": "meta", "carry": carry}
+    ok, why = M.shape_applicable(cfg, shape)
+    if not ok:
+        rec.update(status="skipped", reason=why)
+        return rec
+    try:
+        fsdp, parts, saved, col, extra = mesh_prices(cfg, shape, mesh,
+                                                     carry=carry)
+        args = sum(parts.values())
+        flops, nbytes = mesh_terms(cfg, shape, mesh,
+                                   threshold_method=threshold_method,
+                                   attn_dtype=attn_dtype)
+        terms = RL.RooflineTerms(flops, nbytes, sum(col.bytes.values()),
+                                 chips=MC.chips(mesh),
+                                 collective_s=col.seconds)
+        mf = RL.model_flops(cfg, shape, distill=extra.get("distill", False))
+        rec.update(
+            status=("ok" if args <= FIT_SHARE * RL.HBM_BYTES
+                    else "does_not_fit"), fsdp=fsdp, **extra,
+            memory={"argument_size_in_bytes": args, "arguments": parts,
+                    "saved_carries_bytes": saved,
+                    "per_device_total_gb": round(args / 2**30, 3)},
+            roofline=terms.as_dict(), collectives=col.as_dict(),
+            model_flops=mf,
+            useful_flop_ratio=mf / terms.global_flops if flops else None)
+        if rec["status"] == "does_not_fit":
+            rec["reason"] = (f"the arguments need {args / 1e9:.1f} GB a "
+                             f"chip, over {FIT_SHARE:.0%} of "
+                             f"{RL.HBM_BYTES / 1e9:.0f} GB")
+    except Exception as e:  # a failing cell is a bug: surface it loudly
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   trace=traceback.format_exc()[-2000:])
+    return rec
+
+
 def summary(rec: dict) -> str:
     """The cell's one-line report."""
     status = rec["status"]
-    if status == "ok" and "roofline" in rec:
+    if rec.get("device") == "meta" and "roofline" in rec:
+        r = rec["roofline"]
+        extra = (f"fsdp={rec['fsdp']} carry={rec['carry']} "
+                 f"dom={r['dominant']} tc={r['t_compute_s']:.3e} "
+                 f"tm={r['t_memory_s']:.3e} tx={r['t_collective_s']:.3e} "
+                 f"args/chip={rec['memory']['per_device_total_gb']}GB")
+    elif status == "ok" and "roofline" in rec:
         r = rec["roofline"]
         extra = (f"batch={rec['run_batch']} dom={r['dominant']} "
                  f"tc={r['t_compute_s']:.3e} tm={r['t_memory_s']:.3e} "
@@ -362,10 +580,35 @@ def summary(rec: dict) -> str:
             f"{rec['mesh']:8s} {extra}")
 
 
+def mesh_table(records: list[dict]) -> str:
+    """Production-mesh records as a markdown table: per chip, argument GB,
+    the three roofline terms (ms) and the dominant one, collective bytes,
+    and the useful flop ratio."""
+    rows = ["| arch | shape | mesh | status | fsdp | args GB/chip | compute "
+            "ms | memory ms | collective ms | dominant | collective GB/chip "
+            "| useful |", "|" + " --- |" * 12]
+    for r in records:
+        mem, ro = r.get("memory", {}), r.get("roofline")
+        cells = [r["arch"], r["shape"], r["mesh"], r["status"],
+                 r.get("fsdp", ""),
+                 f"{mem['argument_size_in_bytes'] / 1e9:.2f}" if mem else ""]
+        if ro:
+            ufr = r["useful_flop_ratio"]
+            cells += [f"{ro['t_compute_s'] * 1e3:.3f}",
+                      f"{ro['t_memory_s'] * 1e3:.3f}",
+                      f"{ro['t_collective_s'] * 1e3:.3f}", ro["dominant"],
+                      f"{ro['bytes_collective'] / 1e9:.3f}",
+                      f"{ufr:.3f}" if ufr is not None else ""]
+        else:
+            cells += [""] * 6
+        rows.append("| " + " | ".join(str(c) for c in cells) + " |")
+    return "\n".join(rows)
+
+
 def table(records: list[dict]) -> str:
     """The records as a markdown table: status, run batch, argument and
     peak GB, step ms, the three roofline terms (ms), dominant term, mfu
-    and hbm_share."""
+    and hbm_share (production-mesh records: `mesh_table`)."""
     rows = ["| arch | shape | status | batch | args GB | peak GB | step ms "
             "| compute ms | memory ms | collective ms | dominant | mfu "
             "| hbm_share |", "|" + " --- |" * 13]
@@ -405,8 +648,14 @@ def main(argv=None) -> int:
     ap.add_argument("--table", metavar="DIR", default=None,
                     help="print the records under DIR as a markdown "
                          "table and exit")
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--carry", default=None)
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "single", "multi", "both"],
+                    help="card: run on one H100 (default); single / multi "
+                         "/ both: price per chip on 16x16 / 2x16x16")
+    ap.add_argument("--carry", default="sp", choices=["sp", "dp"],
+                    help="the mesh's inter-layer carry: sp (\"bq.\") or dp "
+                         "(\"b..\")")
+    ap.add_argument("--attn-dtype", default="f32", choices=list(ATTN_DTYPES))
     args = ap.parse_args(argv)
     if args.table:
         order = {(a, sh): i for i, (a, sh) in enumerate(
@@ -416,29 +665,35 @@ def main(argv=None) -> int:
             with open(os.path.join(args.table, fn)) as f:
                 recs.append(json.load(f))
         recs.sort(key=lambda r: order.get((r["arch"], r["shape"]), -1))
-        print(table(recs))
+        print(table(recs) if args.mesh == "card" else mesh_table(recs))
         return 0
-    if args.mesh is not None or args.carry is not None:
-        raise NotImplementedError(
-            "--mesh / --carry shard the step over the production mesh; "
-            "its per-chip memory from distributed.sharding.param_spec on "
-            "meta tensors is not ported yet (ROADMAP.md item 2b)")
     resolve_device(args.device)
     archs = ASSIGNED if args.all or args.arch is None else [args.arch]
     shapes = list(M.SHAPES) if args.shape is None else [args.shape]
+    meshes = {"card": [None], "single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    attn_dtype = ATTN_DTYPES[args.attn_dtype]
     records = []
-    for arch in archs:
-        for shape in shapes:
+    for arch, shape, mp in ((a, sh, m) for a in archs for sh in shapes
+                            for m in meshes):
+        if mp is None:
             rec = run_cell(arch, shape, device=args.device, batch=args.batch,
                            q_block=args.q_block,
-                           threshold_method=args.threshold)
-            records.append(rec)
-            print(summary(rec), flush=True)
-            if args.out:
-                os.makedirs(args.out, exist_ok=True)
-                fn = f"{arch}__{shape}__{rec['mesh']}.json"
-                with open(os.path.join(args.out, fn), "w") as f:
-                    json.dump(rec, f, indent=1)
+                           threshold_method=args.threshold,
+                           attn_dtype=attn_dtype)
+        else:
+            rec = run_mesh_cell(
+                arch, shape, multi_pod=mp, carry=args.carry,
+                attn_dtype=attn_dtype, threshold_method=args.threshold,
+                cfg=get_config(arch, q_block=args.q_block) if args.q_block
+                else None)
+        records.append(rec)
+        print(summary(rec), flush=True)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            fn = f"{arch}__{shape}__{rec['mesh']}.json"
+            with open(os.path.join(args.out, fn), "w") as f:
+                json.dump(rec, f, indent=1)
     n_err = sum(r["status"] == "error" for r in records)
     print(f"\n{len(records)} cells: "
           f"{sum(r['status'] == 'ok' for r in records)} ok, "

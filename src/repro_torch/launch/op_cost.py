@@ -34,6 +34,19 @@ lengths, and while it runs the counter ignores the aten ops inside it:
 the kernel's plain version on the CPU, the wrapper's copies on the card.
 So one step counts the same flops and bytes on the CPU and on the card.
 
+On the meta device (the dry run's production-mesh count: every tensor
+without storage) an op's outputs are only shapes, but PyTorch computes
+many of them through Python reference implementations (~0.3-1 ms an
+elementwise op). A step repeats the same ops on the same shapes (layers,
+query blocks, microbatches), so `Counter` keeps a memo on meta: the first
+call of an op on given argument metadata (shapes, strides, dtypes and the
+other arguments) runs it, and later calls build outputs with the same
+shapes, strides and dtypes directly; an in-place op whose first call left
+its destination's metadata unchanged returns the destination. Ops that
+return views run every time. The count is unchanged: it reads only shapes
+and dtypes (``tests/test_torch_dryrun_mesh.py`` holds meta against CPU
+counts).
+
 Not ported: ``f32_param_copy_bytes`` corrects an artifact of XLA's CPU
 backend (hoisted float32 copies of bf16 weights), which eager PyTorch does
 not make; the HLO parsing (``parse_computations``, ``module_cost``) has
@@ -42,6 +55,7 @@ no HLO to read.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -140,15 +154,110 @@ def op_cost(func, args, kwargs, out) -> tuple[float, float]:
     return 0.0, 0.0
 
 
+_META = torch.device("meta")
+_PLAIN = (int, float, bool, str, type(None), torch.dtype, torch.device,
+          torch.layout, torch.memory_format)
+
+
+class _NoMemo(Exception):
+    pass
+
+
+def _meta_key(x):
+    """Hashable metadata of an argument: a meta tensor's shape, strides,
+    offset and dtype; plain values as they are. Raises _NoMemo for
+    anything else (a tensor with storage, an unknown object)."""
+    if isinstance(x, torch.Tensor):
+        if not x.is_meta:
+            raise _NoMemo
+        return ("T", tuple(x.shape), x.stride(), x.storage_offset(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(_meta_key(y) for y in x)
+    if isinstance(x, _PLAIN):
+        return x
+    raise _NoMemo
+
+
+def _meta_outputs(out):
+    """The metadata of an op's outputs (tensors, or a tuple / list of
+    them), or None when there is something else in them."""
+    if isinstance(out, torch.Tensor):
+        return ("T", tuple(out.shape), out.stride(), out.dtype)
+    if isinstance(out, (list, tuple)) and out and all(
+            isinstance(o, torch.Tensor) for o in out):
+        return (type(out), tuple((tuple(o.shape), o.stride(), o.dtype)
+                                 for o in out))
+    return None
+
+
+def _rebuild(meta):
+    if meta[0] == "T":
+        return torch.empty_strided(meta[1], meta[2], dtype=meta[3],
+                                   device=_META)
+    kind, outs = meta
+    return kind(torch.empty_strided(s, st, dtype=dt, device=_META)
+                for s, st, dt in outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _memo_kind(func) -> str | None:
+    """"fresh" for an op whose outputs alias nothing, "inplace" for one
+    that writes its first argument and returns it, None otherwise."""
+    schema = func._schema
+    rets = schema.returns
+    if any(r.alias_info is not None for r in rets):
+        a = schema.arguments
+        if (len(rets) == 1 and a and a[0].alias_info is not None
+                and a[0].alias_info.is_write
+                and rets[0].alias_info is not None
+                and rets[0].alias_info.is_write
+                and not any(x.alias_info is not None and x.alias_info.is_write
+                            for x in a[1:])):
+            return "inplace"
+        return None
+    if any(x.alias_info is not None and x.alias_info.is_write
+           for x in schema.arguments):
+        return None
+    return "fresh"
+
+
 class Counter(TorchDispatchMode):
     """Counts flops and bytes of the aten ops run under it (`cost`),
-    plus the work the kernels report through ``kernels.cost.kernel``."""
+    plus the work the kernels report through ``kernels.cost.kernel``.
+    On meta tensors, repeated ops come from a memo (module docstring)."""
 
     def __init__(self):
         super().__init__()
         self.cost = Cost()
         self.kernel_calls: dict[str, int] = {}
         self._quiet = 0
+        self._memo: dict = {}
+
+    def _run(self, func, args, kwargs):
+        kind = _memo_kind(func)
+        if kind is None:
+            return func(*args, **kwargs)
+        try:
+            key = (func, _meta_key(args), _meta_key(tuple(sorted(
+                kwargs.items()))))
+        except (_NoMemo, TypeError):
+            return func(*args, **kwargs)
+        if kind == "fresh" and not any(
+                isinstance(x, torch.Tensor) for x in args) and (
+                    kwargs.get("device") not in ("meta", _META)):
+            return func(*args, **kwargs)       # a factory off the meta device
+        hit = self._memo.get(key)
+        if hit is not None:
+            return args[0] if hit == "same" else _rebuild(hit)
+        out = func(*args, **kwargs)
+        if kind == "inplace":
+            if out is args[0]:
+                self._memo[key] = "same"
+        else:
+            meta = _meta_outputs(out)
+            if meta is not None:
+                self._memo[key] = meta
+        return out
 
     def __enter__(self):
         _kcost.counters.append(self)
@@ -171,7 +280,7 @@ class Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs)
         if not self._quiet:
             f, b = op_cost(func, args, kwargs, out)
             self.cost.flops += f

@@ -11,7 +11,9 @@ The flops and bytes come from ``launch.op_cost``, which counts the aten ops
 one eager step executes and, for each hand-written kernel, the work
 ``kernels.cost``'s formulas give (``k1_work`` .. ``k5_work``, re-exported
 here). One card moves nothing between cards: ``bytes_collective`` is 0
-and ``chips`` is 1.
+and ``chips`` is 1. A production-mesh record (``launch.mesh_cost``) holds
+one chip's share of the step, its collective bytes and their time at
+each group's link rate.
 
 Hardware constants: NVIDIA H100 SXM data sheet, dense rates at 700 W.
 
@@ -43,6 +45,9 @@ class RooflineTerms:
     bytes_hbm: float
     bytes_collective: float = 0.0
     chips: int = 1
+    # the collectives' time where their groups move at different rates
+    # (launch.mesh_cost), else bytes_collective / LINK_BW
+    collective_s: float | None = None
 
     @property
     def global_flops(self) -> float:
@@ -58,6 +63,8 @@ class RooflineTerms:
 
     @property
     def t_collective(self) -> float:
+        if self.collective_s is not None:
+            return self.collective_s
         return self.bytes_collective / LINK_BW
 
     @property

@@ -10,8 +10,9 @@ pretrain) of seeded weights on one device.
 
 The JAX launcher's flags (the mode is distill where HAD applies, else
 pretrain; distillation follows `tiny_schedule(--steps-per-stage)`,
-pretraining a constant 3e-4), plus --device: the card unless it asks for
-the CPU; without a card the default raises (no fallback). Data is the
+pretraining a constant 3e-4; --attn-dtype bf16 runs the distill
+attention's logit blocks in bfloat16), plus --device: the card unless it
+asks for the CPU; without a card the default raises (no fallback). Data is the
 order-2 Markov `lm_stream` from --seed. With --ckpt-dir the loop saves
 every --ckpt-every steps and resumes from the latest checkpoint. The
 summary line names the stages the distill steps ran (tiny_schedule(2)
@@ -30,9 +31,9 @@ from repro_torch.distributed.compression import CompressionConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adam, schedules
 from repro_torch.serve.runner import resolve_device
-from repro_torch.train import (LoopConfig, StepConfig, build_distill_step,
-                               build_pretrain_step, init_distill_state,
-                               init_pretrain_state, run)
+from repro_torch.train import (ATTN_DTYPES, LoopConfig, StepConfig,
+                               build_distill_step, build_pretrain_step,
+                               init_distill_state, init_pretrain_state, run)
 
 
 def main(argv=None):
@@ -55,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn-dtype", default="f32",
+                    choices=list(ATTN_DTYPES),
+                    help="dtype of the distill attention's logit blocks")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -75,7 +79,8 @@ def main(argv=None):
         dcfg = DistillConfig(schedule=tiny_schedule(args.steps_per_stage))
         state = init_distill_state(cfg, opt_cfg, step_cfg, generator=gen,
                                    device=device)
-        step_fn = build_distill_step(cfg, dcfg, opt_cfg, step_cfg)
+        step_fn = build_distill_step(cfg, dcfg, opt_cfg, step_cfg,
+                                     attn_dtype=ATTN_DTYPES[args.attn_dtype])
         max_steps = min(args.steps, dcfg.total_steps)
     else:
         state = init_pretrain_state(cfg, opt_cfg, step_cfg, generator=gen,

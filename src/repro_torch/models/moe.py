@@ -60,6 +60,19 @@ def group_shape(tokens: int, cfg: ModelConfig) -> tuple[int, int, int]:
     return tokens // tg, tg, min(tg, max(int(4 * expected) + 1, 16))
 
 
+def train_group_shape(tokens: int, cfg: ModelConfig,
+                      group_size: int = GROUP_SIZE) -> tuple[int, int, int]:
+    """(groups G, tokens a group tg, capacity a group and expert cap) of
+    training's dispatch: int(tg * k * capacity_factor / E) + 1 places,
+    tokens past them dropped."""
+    tg = min(group_size, tokens)
+    while tokens % tg:
+        tg -= 1
+    cap = max(int(tg * cfg.experts_per_token * cfg.capacity_factor
+                  / cfg.n_experts) + 1, 1)
+    return tokens // tg, tg, cap
+
+
 def _route(p: MoE, xg: torch.Tensor, cfg: ModelConfig):
     """(router probabilities [G, Tg, E] float32, gates, experts)."""
     k = cfg.experts_per_token
@@ -95,16 +108,16 @@ def moe_ffn_train(p: MoE, x: torch.Tensor, *, cfg: ModelConfig,
     f and mean router probabilities p). Each group's capacity is
     int(tg * k * capacity_factor / E) + 1; tokens past it are dropped."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_token
-    tokens = b * s
-    tg = min(group_size, tokens)
-    while tokens % tg:
-        tg -= 1
-    cap = max(int(tg * k * cfg.capacity_factor / e) + 1, 1)
-    xg = x.reshape(tokens // tg, tg, d)
+    e = cfg.n_experts
+    g, tg, cap = train_group_shape(b * s, cfg, group_size)
+    xg = x.reshape(g, tg, d)
     probs, gates, experts = _route(p, xg, cfg)
     y = _experts(p, xg, gates, experts, cap, cfg)
-    top1 = F.one_hot(experts[..., 0], e).to(torch.float32)
+    # a comparison, as _experts builds its one-hots: F.one_hot is a
+    # scatter on the CPU and the card but not on the meta device, so the
+    # dry run's counts would differ by device
+    top1 = (experts[..., 0, None] == torch.arange(e, device=x.device)
+            ).to(torch.float32)
     aux = e * (top1.mean((0, 1)) * probs.mean((0, 1))).sum()
     return y.reshape(b, s, d), aux
 

@@ -35,6 +35,10 @@ from repro_torch.optim import adam
 from repro_torch.serve.runner import resolve_device
 
 
+# the CLI's --attn-dtype names
+ATTN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     moe_aux_weight: float = 0.01
@@ -117,10 +121,13 @@ def build_pretrain_step(cfg: ModelConfig, opt_cfg: adam.AdamWConfig,
                         lr_fn: Callable, step_cfg: StepConfig = StepConfig(),
                         *, had_train: bool = False,
                         dcfg: DistillConfig | None = None,
-                        threshold_method: str | None = None) -> Callable:
+                        threshold_method: str | None = None,
+                        attn_dtype: torch.dtype = torch.float32
+                        ) -> Callable:
     """Next-token CE training step. had_train=True trains with the HAD
     attention in the loop (binarization-aware pretraining, on dcfg's
-    schedule)."""
+    schedule), its logit blocks in `attn_dtype` (JAX's module-global
+    ``ATTN_DTYPE``, an argument here)."""
 
     def step_fn(state: dict, batch: dict):
         model = state["params"]
@@ -130,7 +137,8 @@ def build_pretrain_step(cfg: ModelConfig, opt_cfg: adam.AdamWConfig,
             if had_train and cfg.has_attention:
                 att = {"n": cfg.had.topn(mb["labels"].shape[1]),
                        "sched": dcfg.schedule, "step": step,
-                       "threshold_method": threshold_method}
+                       "threshold_method": threshold_method,
+                       "attn_dtype": attn_dtype}
                 out = T.forward(model, mb, cfg=cfg, mode="had_train",
                                 att=att)
             else:
@@ -191,9 +199,13 @@ def build_distill_step(cfg: ModelConfig, dcfg: DistillConfig,
                        opt_cfg: adam.AdamWConfig,
                        step_cfg: StepConfig = StepConfig(), *,
                        topn: int | None = None,
-                       threshold_method: str | None = None) -> Callable:
+                       threshold_method: str | None = None,
+                       attn_dtype: torch.dtype = torch.float32) -> Callable:
     """The paper's training step: the fused teacher + student forward, the
     Eq. 11 loss (Eq. 19 in stage 4), AdamW on the student's subset.
+    `attn_dtype` is the dtype of the attention logit blocks, their top-N
+    and A.V (JAX's ``set_attn_compute_dtype``; softmax and KL reduce in
+    float32 either way).
     Metrics: loss, att_kl, out_kl, moe_aux, grad_norm, lr, stage, c. The
     output KL runs on the final hidden states a block of rows at a time
     (`transformer.output_kl_from_hidden`), so the step never holds the
@@ -207,7 +219,8 @@ def build_distill_step(cfg: ModelConfig, dcfg: DistillConfig,
             seq = next(iter(mb.values())).shape[1]
             att = {"n": topn if topn is not None else cfg.had.topn(seq),
                    "sched": dcfg.schedule, "step": step,
-                   "threshold_method": threshold_method}
+                   "threshold_method": threshold_method,
+                   "attn_dtype": attn_dtype}
             ht, hs, att_kl, moe_aux = T.distill_hidden(
                 teacher, student, mb, cfg=cfg, att=att)
             if step_cfg.output_positions == "last":

@@ -17,6 +17,7 @@ marker): K1 at T = 32768 in waves and K4 over 524288 positions against
 their plain versions.
 """
 import functools
+import json
 import os
 import subprocess
 import sys
@@ -362,15 +363,24 @@ def test_run_cell_cpu_reduced(arch, kind):
 
 def test_dryrun_cli(tmp_path, capsys):
     """--all --device meta: exit 0, one record per assigned arch x shape;
-    --mesh / --carry raise naming ROADMAP item 2; the default device
+    --mesh single --device meta: exit 0, 40 priced 16x16 records, none an
+    error, each with JAX's keys and fsdp / carry; the default device
     raises without a card."""
     assert D.main(["--all", "--device", "meta", "--out",
-                   str(tmp_path)]) == 0
-    assert len(os.listdir(tmp_path)) == len(ASSIGNED) * len(M.SHAPES)
+                   str(tmp_path / "card")]) == 0
+    assert len(os.listdir(tmp_path / "card")) == len(ASSIGNED) * len(M.SHAPES)
     assert "40 cells" in capsys.readouterr().out
-    for flag in ("--mesh", "--carry"):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            D.main(["--arch", "smollm-135m", flag, "x", "--device", "meta"])
+    out = tmp_path / "mesh"
+    assert D.main(["--all", "--mesh", "single", "--device", "meta",
+                   "--out", str(out)]) == 0
+    assert "40 cells" in capsys.readouterr().out
+    recs = [json.loads((out / fn).read_text()) for fn in os.listdir(out)]
+    assert len(recs) == 40
+    for rec in recs:
+        assert rec["mesh"] == "16x16" and rec["status"] != "error"
+        if rec["status"] != "skipped":
+            assert KEYS | {"fsdp", "carry"} <= set(rec)
+            assert rec["carry"] == "sp"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             D.main(["--arch", "smollm-135m", "--shape", "decode_32k"])

@@ -576,7 +576,8 @@ def test_port_imports_no_jax():
         "        'repro_torch.distributed.compression',\n"
         "        'repro_torch.distributed.sharding',\n"
         "        'repro_torch.distributed.collectives',\n"
-        "        'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.launch.mesh_cost',\n"
+        "        'repro_torch.launch.dryrun',\n"
         "        'repro_torch.models.model', 'repro_torch.launch.train']\n"
         "assert all(m in sys.modules for m in need), need\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
