@@ -47,6 +47,10 @@ from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 
+#: serve_step's region of a layer's mixer, by its pattern character
+MIXER_REGIONS = {"A": "attn", "C": "cross", "M": "ssm"}
+
+
 def layer_kinds(cfg: ModelConfig) -> str:
     """The pattern character of every layer, in layer order."""
     return cfg.layer_pattern * cfg.n_groups
@@ -575,7 +579,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                logits_mode: str = "all",
                frames: torch.Tensor | None = None,
                frames_rows: torch.Tensor | None = None,
-               group=None) -> torch.Tensor:
+               group=None, marks=None) -> torch.Tensor:
     """Prefill (tokens [B, S>1]) or decode (tokens [B, 1]) against the
     caches, which are updated in place.
 
@@ -616,9 +620,16 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     its context over the group's heads, and vocabulary-sharded logits are
     gathered at the end, so every rank returns the full logits, equal bit
     for bit to one device's.
+
+    marks: called with a region's name where it ends, and with "start"
+    first: "embed", each layer's mixer (`MIXER_REGIONS`) and FFN ("mlp",
+    "moe"), then "head" (the last-row gather, final norm and unembedding);
+    the serving runner's region timer. It launches nothing.
     """
     cfg = model.cfg
     b, s = tokens.shape
+    if marks is not None:
+        marks("start")
     st = st_ok = None
     if state_tables is not None:
         st = state_tables.to(torch.int64)
@@ -645,6 +656,8 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
             frames_rows[:, None, None], fx, x)
     if cfg.pos == "learned":
         x = x + model.pos_embed[:s][None]
+    if marks is not None:
+        marks("embed")
     for kind, blk, cache in zip(layer_kinds(cfg), model.blocks, caches):
         h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
         if kind == "M":
@@ -661,6 +674,8 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                                   n_valid=n_valid, active=active,
                                   page_topn=page_topn, binary=binary,
                                   group=group)
+        if marks is not None:
+            marks(MIXER_REGIONS[kind])
         if cfg.d_ff > 0:
             h2 = common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps)
             if isinstance(blk.ffn, moe.MoE):
@@ -668,6 +683,8 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
             else:
                 x = x + common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,
                                    act=cfg.act)
+            if marks is not None:
+                marks("moe" if isinstance(blk.ffn, moe.MoE) else "mlp")
     if logits_mode == "last":
         if n_valid is None:
             x = x[:, -1:]
@@ -682,4 +699,6 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
         # (the model dim is not split), so gathering the ranks' columns in
         # rank order gives one device's logits exactly
         logits = collectives.all_gather_last(logits, group)
+    if marks is not None:
+        marks("head")
     return logits

@@ -60,7 +60,7 @@ from repro_torch.serve.scheduler import (FinishedRequest, Request,
                                          Scheduler, ServeConfig)
 from repro_torch.serve.runner import _chunk_extra
 from repro_torch.serve.statepool import StatePool
-from repro_torch.serve.telemetry import RequestMetrics, Telemetry
+from repro_torch.serve.telemetry import RequestMetrics, Telemetry, span
 from repro_torch.serve.validate import state_layer_positions
 
 __all__ = ["Engine", "FinishedRequest", "Request", "RequestMetrics",
@@ -193,31 +193,43 @@ class Engine:
         (any in-flight pipelined step is landed first, so mixing the two
         stepping APIs never reorders commits).
 
-        With telemetry attached, each phase is timed on the host and the
-        plan is recorded as one flight-recorder step event;
-        `Telemetry(fence=True)` synchronizes the device before the
-        execute->commit stamp so execute time is device time."""
+        With telemetry attached, each phase is a span timed on the host,
+        the step's region times are read after the commit, and the plan is
+        recorded as one flight-recorder step event, stamped at the
+        commit's end; `Telemetry(fence=True)` synchronizes the device
+        before the execute->commit stamp so execute time is device
+        time."""
         finished = self.flush()
         tel = self.telemetry
         if tel is None:
             plan = self.scheduler.schedule()
             results = self.runner.execute(plan)
             return finished + self.scheduler.commit(plan, results)
-        t0 = tel.clock()
-        plan = self.scheduler.schedule()
-        t1 = tel.clock()
-        results = self.runner.execute(plan)
-        if tel.fence:
-            self.runner.sync()
-        t2 = tel.clock()
-        finished += self.scheduler.commit(plan, results)
-        t3 = tel.clock()
-        tel.record_step(plan, timings={"schedule": t1 - t0,
-                                       "execute": t2 - t1,
-                                       "commit": t3 - t2,
+        with tel.span("engine.step"):
+            with tel.span("scheduler.schedule") as sched:
+                plan = self.scheduler.schedule()
+            with tel.span("runner.execute") as execute:
+                self._on_chunks(plan, execute[1])
+                results = self.runner.execute(plan)
+                if tel.fence:
+                    self.runner.sync()
+            with tel.span("scheduler.commit") as commit:
+                finished += self.scheduler.commit(plan, results)
+            with tel.span("telemetry.read"):
+                device_ms = self.runner.region_ms()
+        tel.record_step(plan, timings={"schedule": sched[2] - sched[1],
+                                       "execute": execute[2] - sched[2],
+                                       "commit": commit[2] - execute[2],
                                        "fenced": tel.fence},
-                        pool=self.scheduler.watermarks())
+                        pool=self.scheduler.watermarks(), ts=commit[2],
+                        device_ms=device_ms)
         return finished
+
+    def _on_chunks(self, plan: SchedulePlan, ts: float) -> None:
+        """Stamp the plan's prefill chunks on the hub at the start (`ts`)
+        of the ``runner.execute`` span that runs them."""
+        for ch in plan.prefill:
+            self.telemetry.on_chunk(ch.request.request_id, ts)
 
     # ------------------------------------------------------------------
     # pipelined stepping (double-buffered schedule/execute overlap)
@@ -234,8 +246,10 @@ class Engine:
         (admissions and preemptions see token effects a step later).
         Returns the requests finished by the step that landed."""
         clock = self._clock()
+        tel = self.telemetry
         t0 = clock()
-        plan = self.scheduler.schedule()
+        with span(tel, "scheduler.schedule"):
+            plan = self.scheduler.schedule()
         t1 = clock()
         self._pipe["schedule"] += t1 - t0
         finished = (self._complete_inflight((t0, t1))
@@ -243,12 +257,17 @@ class Engine:
         if not (plan.admissions or plan.swap_ins or plan.reclaims
                 or plan.prefill or plan.decode):
             return finished            # nothing to dispatch: don't track
-        plan = self.scheduler.resolve_plan(plan)
-        launch = clock()
-        pending = self.runner.execute_async(plan)
-        s0 = clock()
-        self.scheduler.commit_structural(plan)
-        s1 = clock()
+        with span(tel, "engine.launch"):
+            plan = self.scheduler.resolve_plan(plan)
+            launch = clock()
+            with span(tel, "runner.execute") as execute:
+                if tel is not None:
+                    self._on_chunks(plan, execute[1])
+                pending = self.runner.execute_async(plan)
+            s0 = clock()
+            with span(tel, "scheduler.commit"):
+                self.scheduler.commit_structural(plan)
+            s1 = clock()
         self._inflight = _Inflight(plan, pending, launch, t1 - t0, s1 - s0)
         self._pipe["steps"] += 1
         self.stats["pipelined_steps"] += 1
@@ -263,19 +282,25 @@ class Engine:
         [dispatch, wait-end]."""
         inflight = self._inflight
         self._inflight = None
-        results = self.runner.wait(inflight.pending)
-        clock = self._clock()
-        t2 = clock()
-        finished = self.scheduler.commit_tokens(inflight.plan, results)
-        t3 = clock()
+        tel = self.telemetry
+        with span(tel, "engine.land"):
+            results = self.runner.wait(inflight.pending)
+            clock = self._clock()
+            t2 = clock()
+            with span(tel, "scheduler.commit"):
+                finished = self.scheduler.commit_tokens(inflight.plan,
+                                                        results)
+            t3 = clock()
         execute_s = t2 - inflight.launch_ts
         overlap = 0.0
         if overlap_interval is not None:
             o0, o1 = overlap_interval
             overlap = max(0.0, min(o1, t2) - max(o0, inflight.launch_ts))
         self._pipe["overlap"] += overlap
-        if self.telemetry is not None:
-            self.telemetry.record_step(
+        if tel is not None:
+            with tel.span("telemetry.read"):
+                device_ms = self.runner.region_ms()
+            tel.record_step(
                 inflight.plan,
                 timings={"schedule": inflight.sched_s,
                          "execute": execute_s,
@@ -283,7 +308,7 @@ class Engine:
                          "fenced": False,
                          "overlap": overlap,
                          "pipelined": True},
-                pool=self.scheduler.watermarks())
+                pool=self.scheduler.watermarks(), device_ms=device_ms)
         return finished
 
     def flush(self) -> list[FinishedRequest]:
@@ -441,6 +466,8 @@ class Engine:
         for slot in self.slots:
             slot.length = s
             slot.prefill_pos = s
+        if self.telemetry is not None:
+            self.telemetry.drop_spans()    # no step event takes them
         return logits[:, -1, :self.cfg.vocab_size].clone()
 
     def decode(self, tokens: np.ndarray) -> torch.Tensor:
@@ -460,6 +487,8 @@ class Engine:
                                          self.state_tables)
         for slot in self.slots:
             slot.length += 1
+        if self.telemetry is not None:
+            self.telemetry.drop_spans()    # no step event takes them
         return logits[:, 0, :self.cfg.vocab_size].clone()
 
     @property

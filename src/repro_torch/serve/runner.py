@@ -76,6 +76,7 @@ raises.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import functools
@@ -93,7 +94,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import pages_needed
 from repro_torch.serve.scheduler import SamplingParams, SchedulePlan, ServeConfig
-from repro_torch.serve.telemetry import SERVE_COUNTERS, MetricsRegistry
+from repro_torch.serve.telemetry import (SERVE_COUNTERS, MetricsRegistry,
+                                         span)
 from repro_torch.serve.validate import (STATE_LAYER_CHARS,
                                         mesh_model_size,
                                         resolve_state_pages,
@@ -239,11 +241,15 @@ class _StepInputs:
             self.views[name] = self.dev[off:off + size].view(shape)
             off += size
 
-    def stage(self, **arrays) -> None:
-        """Copy one step's plan arrays (numpy, by field name) to the
-        device buffer."""
+    def wait(self) -> None:
+        """Block until the last copy has read the staging buffer: the
+        host may rewrite it after this."""
         if self._copied is not None:
             self._copied.synchronize()
+
+    def stage(self, **arrays) -> None:
+        """Copy one step's plan arrays (numpy, by field name) to the
+        device buffer, after `wait()`."""
         for name, arr in arrays.items():
             self.host_views[name][...] = arr
         self.dev.copy_(self.host, non_blocking=True)
@@ -254,8 +260,38 @@ class _StepInputs:
         """The null plan: every row inactive, n_valid 0, every table entry
         -1, so every cache write of a step lands in the trash page,
         position or entry."""
+        self.wait()
         self.stage(**{name: -1 if name in ("tables", "state") else 0
                       for name in self.views})
+
+
+#: the profiler range at each region boundary of `_kernel_regions`' run
+REGION_MARK = "serve.region."
+
+
+class _Regions:
+    """The region times of one step kind's eager forwards on the CPU:
+    serve_step's marker (`marks`: the step's start, then the end of the
+    embedding, of each layer's mixer and FFN, and of the head), stamped
+    on the host clock; `take` returns the region ms summed since its last
+    call."""
+
+    def __init__(self, clock):
+        self.clock = clock
+        self.sums: dict[str, float] = {}
+        self._last = 0.0
+
+    def __call__(self, name: str) -> None:
+        """serve_step's marker: `name` is the region that ends here."""
+        now = self.clock()
+        if name != "start":
+            self.sums[name] = self.sums.get(name, 0.0) \
+                + 1e3 * (now - self._last)
+        self._last = now
+
+    def take(self) -> dict[str, float]:
+        out, self.sums = self.sums, {}
+        return out
 
 
 @dataclasses.dataclass
@@ -306,6 +342,10 @@ class ModelRunner:
         self.stats = MetricsRegistry.adopt(stats)
         self.stats.declare_counters(SERVE_COUNTERS)
         self.telemetry = None
+        # the request whose prefill chunk is running, for its spans
+        self._rid: int | None = None
+        # CPU region times by step kind, made while a hub is attached
+        self._regions: dict[str, _Regions] = {}
         self.n = scfg.topn if scfg.topn is not None else cfg.had.topn(scfg.max_len)
         self.chunk = max(1, min(scfg.prefill_chunk, scfg.max_len))
         self.page = scfg.page_size
@@ -450,7 +490,20 @@ class ModelRunner:
         `Telemetry(fence=True)`)."""
         self._finalize_swaps()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with span(self.telemetry, "runner.sync", self._rid):
+                torch.cuda.synchronize(self.device)
+
+    def region_ms(self) -> dict[str, dict[str, float]]:
+        """Host ms by serve_step region of each step kind's eager
+        forwards on the CPU since the last call, while a hub is attached
+        (no entry for a kind that did not run; none on the card, whose
+        regions are the hub's `kernel_regions`)."""
+        out = {}
+        for kind, regions in self._regions.items():
+            ms = regions.take()
+            if ms:
+                out[kind] = ms
+        return out
 
     # ------------------------------------------------------------------
     # the step: static buffers, one graph per kind
@@ -462,8 +515,9 @@ class ModelRunner:
         buffers; 0 with eager=True."""
         return len(self._graphs)
 
-    def _forward(self, kind: str) -> torch.Tensor:
-        """serve_step on the static inputs of `kind`; logits [B, 1, V]."""
+    def _forward(self, kind: str, marks=None) -> torch.Tensor:
+        """serve_step on the static inputs of `kind`, calling `marks` at
+        its region boundaries; logits [B, 1, V]."""
         v = self._inputs[kind].views
         frames = "frames" in v
         return T.serve_step(
@@ -475,14 +529,69 @@ class ModelRunner:
             zero_fresh=False, logits_mode="last",
             frames=self._frames if frames else None,
             frames_rows=v["frames"] != 0 if frames else None,
-            group=self.group)
+            group=self.group, marks=marks)
+
+    def _marks(self, kind: str) -> _Regions | None:
+        """The region times of `kind`'s eager forwards on the CPU while a
+        hub is attached."""
+        if self.telemetry is None or self.device.type != "cpu":
+            return None
+        if kind not in self._regions:
+            self._regions[kind] = _Regions(self.telemetry.clock)
+        return self._regions[kind]
+
+    def _kernel_regions(self, kind: str) -> list[list[str]] | None:
+        """[device op name, region] for each device operation that one
+        eager forward of `kind` launches, in launch order (the graph's
+        order): the profiler keeps a host range (`REGION_MARK` + region)
+        at each region boundary, and an operation belongs to the region
+        of the first boundary after its launch call. None when a profiler
+        is running already (they do not nest)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        def mark(name: str) -> None:
+            with record_function(REGION_MARK + name):
+                pass
+
+        if torch.autograd._profiler_enabled():
+            return None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            self._forward(kind, mark)
+            torch.cuda.synchronize(self.device)
+        bounds, launch, device = [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == DeviceType.CUDA:
+                if not e.is_user_annotation() and e.duration_ns() > 0:
+                    device.append(e)
+            elif name.startswith(REGION_MARK):
+                bounds.append((e.start_ns(), name[len(REGION_MARK):]))
+            elif name.startswith("cu"):      # a runtime or driver call
+                launch[e.correlation_id()] = e.start_ns()
+        bounds.sort()
+        at = [t for t, _ in bounds]
+        out = []
+        for e in sorted(device, key=lambda e: e.start_ns()):
+            t = launch.get(e.correlation_id())
+            if t is None:         # its call unrecorded: its predecessor's
+                region = out[-1][1] if out else bounds[1][1]
+            else:
+                k = min(bisect.bisect_right(at, t), len(bounds) - 1)
+                region = bounds[max(k, 1)][1]
+            out.append([e.name(), region])
+        return out
 
     def _capture(self, kind: str) -> _Graph:
         """A kind's first use: one warm-up run (on a side stream, as
         capture requires), then the capture, both on the null plan so that
         pages [0, n_pages) and positions [0, max_len) stay untouched. Their
         kernel launches are not counted; each replay adds the capture's.
-        On the CPU only the warm-up runs. A failure raises."""
+        With a hub attached, a second, profiled warm-up run gives the
+        hub the region of each of the graph's device operations
+        (`_kernel_regions`); the graph itself is the same with or without
+        a hub. On the CPU only the warm-up runs. A failure raises."""
         inp = self._inputs[kind]
         inp.stage_null()
         counts = ops.launch_counts(splits=True)
@@ -494,6 +603,10 @@ class ModelRunner:
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             self._forward(kind)
+            if self.telemetry is not None:
+                regions = self._kernel_regions(kind)
+                if regions is not None:
+                    self.telemetry.kernel_regions[kind] = regions
         stream.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -512,12 +625,19 @@ class ModelRunner:
         on the CPU. Returns logits [B, 1, V]."""
         if not self.eager and kind not in self._graphs:
             self._graphs[kind] = self._capture(kind)
-        self._inputs[kind].stage(**arrays)
+        inp, tel, rid = self._inputs[kind], self.telemetry, self._rid
+        with span(tel, "runner.stage", rid):
+            with span(tel, "runner.sync", rid):
+                inp.wait()
+            inp.stage(**arrays)
         g = self._graphs.get(kind)
         if g is None or g.graph is None:
-            return self._forward(kind)
-        g.graph.replay()
-        ops.add_launch_counts(g.launches)
+            with span(tel, "runner.replay", rid, kind):
+                return self._forward(kind, self._marks(kind))
+        with span(tel, "runner.replay", rid, kind):
+            g.graph.replay()
+        with span(tel, "runner.account", rid):
+            ops.add_launch_counts(g.launches)
         return g.logits
 
     # ------------------------------------------------------------------
@@ -599,8 +719,9 @@ class ModelRunner:
             raise ValueError(f"{self.cfg.name} has no frontend "
                              f"(frontend_dim 0) to embed frames")
         if self._ssm_layers or self._cross_layers:  # else images are ignored
-            self._write_state(extra.get("image_embeds"), rows, pos, active,
-                              arrays.get("state"))
+            with span(self.telemetry, "runner.state", self._rid):
+                self._write_state(extra.get("image_embeds"), rows, pos,
+                                  active, arrays.get("state"))
         logits = self._step("prefill", tokens=tokens, pos=pos, active=active,
                             n_valid=n_valid, **arrays)
         self.stats["prefill_chunks"] += 1
@@ -618,7 +739,8 @@ class ModelRunner:
                             pos=pos, active=active,
                             **self._tables(block_tables, state_tables))
         if self.scfg.paged:
-            self._count_decode_traffic(pos, active)
+            with span(self.telemetry, "runner.account", self._rid):
+                self._count_decode_traffic(pos, active)
         return logits
 
     def _count_decode_traffic(self, pos: np.ndarray,
@@ -661,12 +783,15 @@ class ModelRunner:
         logits are copied to the host buffer by a non-blocking copy. The
         returned `_PendingStep` is redeemed by `wait()`, which must come
         before the next dispatch; between the two the host is free."""
-        for swap_in in plan.swap_ins:               # 1. restores
-            self._swap_in_pages(swap_in.request_id, swap_in.pages,
-                                swap_in.state_page)
-        for rc in plan.reclaims:                    # 2. gathers
-            if rc.kind == "swap-out":
-                self._swap_out_pages(rc.request_id, rc.pages, rc.state_page)
+        if plan.swap_ins or plan.reclaims:
+            with span(self.telemetry, "runner.swap", self._rid):
+                for swap_in in plan.swap_ins:       # 1. restores
+                    self._swap_in_pages(swap_in.request_id, swap_in.pages,
+                                        swap_in.state_page)
+                for rc in plan.reclaims:            # 2. gathers
+                    if rc.kind == "swap-out":
+                        self._swap_out_pages(rc.request_id, rc.pages,
+                                             rc.state_page)
         for adm in plan.admissions:                 # 3. state restores
             if (adm.state_page >= 0 and adm.resume != "swap"
                     and adm.state_restore >= 0):
@@ -679,6 +804,7 @@ class ModelRunner:
         eos_hit: set[int] = set()
         for ch in plan.prefill:                     # 4. prefill chunks
             req = ch.request
+            self._rid = req.request_id
             nv = ch.hi - ch.lo
             tokens = np.zeros((b, self.chunk), np.int32)
             tokens[ch.slot, :nv] = req.tokens[ch.lo:ch.hi]
@@ -691,20 +817,21 @@ class ModelRunner:
                 plan.block_tables, plan.state_tables,
                 _chunk_extra(req.extra, int(req.tokens.size), ch.lo, ch.hi,
                              self.chunk), rows=np.array([ch.slot]))
-            if self.telemetry is not None:
-                self.telemetry.on_chunk(req.request_id)
             if ch.state_ckpt >= 0:
                 # checkpoint the state at this chunk's page-aligned
                 # frontier, for later prefix restores
                 self._state_copy(int(plan.state_tables[ch.slot]),
                                  ch.state_ckpt)
             if ch.samples:
-                row = logits[ch.slot, 0, :vocab].cpu().numpy()
-                tok = _sample_token(row, req.sampling, ch.rng)
+                with span(self.telemetry, "runner.sync", self._rid):
+                    row = logits[ch.slot, 0, :vocab].cpu().numpy()
+                with span(self.telemetry, "runner.sample", self._rid):
+                    tok = _sample_token(row, req.sampling, ch.rng)
                 sampled[ch.slot] = tok
                 results[ch.slot].append(tok)
                 if ch.eos_token is not None and tok == ch.eos_token:
                     eos_hit.add(ch.slot)
+            self._rid = None
         entries = [e for e in plan.decode if e.slot not in eos_hit]
         host = ready = None
         if entries:                                 # 5. batched decode
@@ -736,11 +863,13 @@ class ModelRunner:
         self._finalize_swaps()
         if pending.logits is not None:
             if pending.ready is not None:
-                pending.ready.synchronize()
-            rows = pending.logits[:, :self.cfg.vocab_size].numpy()
-            for e in pending.entries:
-                tok = _sample_token(rows[e.slot], e.sampling, e.rng)
-                pending.results.setdefault(e.slot, []).append(tok)
+                with span(self.telemetry, "runner.sync", self._rid):
+                    pending.ready.synchronize()
+            with span(self.telemetry, "runner.sample", self._rid):
+                rows = pending.logits[:, :self.cfg.vocab_size].numpy()
+                for e in pending.entries:
+                    tok = _sample_token(rows[e.slot], e.sampling, e.rng)
+                    pending.results.setdefault(e.slot, []).append(tok)
             pending.logits = None
         return pending.results
 
@@ -829,7 +958,8 @@ class ModelRunner:
         step's sync point: the host enqueues the whole step before it
         waits for them."""
         if self._swaps_landed is not None:
-            self._swaps_landed.synchronize()
+            with span(self.telemetry, "runner.sync", self._rid):
+                self._swaps_landed.synchronize()
             self._swaps_landed = None
 
     def _swap_in_pages(self, request_id: int, pages: tuple,
@@ -869,9 +999,10 @@ class ModelRunner:
         (checkpoint capture when `count`, counted in state_ckpt_bytes;
         checkpoint restore otherwise, counted by the scheduler)."""
         nbytes = 0
-        for i in self._state_layers:
-            for leaf in self.caches[i].values():
-                leaf[dst].copy_(leaf[src])
-                nbytes += leaf[0].numel() * leaf.element_size()
+        with span(self.telemetry, "runner.state", self._rid):
+            for i in self._state_layers:
+                for leaf in self.caches[i].values():
+                    leaf[dst].copy_(leaf[src])
+                    nbytes += leaf[0].numel() * leaf.element_size()
         if count:
             self.stats["state_ckpt_bytes"] += nbytes

@@ -50,7 +50,8 @@ import numpy as np
 from repro_torch.serve.paged import (BlockAllocator, PrefixCache, SwapPool,
                                chain_hash, pages_needed)
 from repro_torch.serve.statepool import StatePool
-from repro_torch.serve.telemetry import SERVE_COUNTERS, MetricsRegistry
+from repro_torch.serve.telemetry import (SERVE_COUNTERS, MetricsRegistry,
+                                         span)
 from repro_torch.serve.validate import resolve_state_pages
 
 
@@ -804,7 +805,9 @@ class Scheduler:
         if self.telemetry is not None:
             self.telemetry.on_token(slot.request.request_id)
         if self.token_sink is not None:
-            self.token_sink(slot.request.request_id, tok)
+            with span(self.telemetry, "scheduler.sink",
+                      slot.request.request_id):
+                self.token_sink(slot.request.request_id, tok)
         req = slot.request
         if (len(slot.generated) >= req.max_new_tokens
                 or (req.eos_token is not None and tok == req.eos_token)):
@@ -840,7 +843,8 @@ class Scheduler:
         if self.telemetry is not None:
             self.telemetry.on_token(rid)
         if self.token_sink is not None:
-            self.token_sink(rid, tok)
+            with span(self.telemetry, "scheduler.sink", rid):
+                self.token_sink(rid, tok)
         if (len(generated) >= req.max_new_tokens
                 or (req.eos_token is not None and tok == req.eos_token)):
             try:

@@ -24,6 +24,53 @@ module, and the scheduler stays device-free):
     separable from device time). Dumpable as JSONL via
     ``Engine.dump_trace()`` — and automatically on invariant failure.
 
+Spans and region times ride on the step events (schema version 2):
+
+  * ``spans`` — every span closed since the previous step event, as
+    compact rows ``[name, start, end, parent, request_id, detail]``
+    (:data:`SPAN_FIELDS`) on the hub's clock; `parent` is the index of
+    the enclosing span's row in the same list, or None; `detail` is a
+    ``gc`` span's generation and a ``runner.replay`` span's step kind.
+    A synchronous `Engine.step()` records, children indented::
+
+        engine.step
+          scheduler.schedule
+          runner.execute
+            runner.swap       swap-in scatters and swap-out gathers
+            runner.state      state writes and copies outside the graphs
+            runner.stage      host staging of a step's plan arrays
+              runner.sync     its wait for the previous copy
+            runner.replay     the graph replay (eager: the forward)
+            runner.account    launch counts and decode-traffic counters
+            runner.sync       every other host block on the card: a
+                              chunk sample's copy, the decode logits,
+                              swap-out bytes
+            runner.sample     host token draws, chunk and decode
+          scheduler.commit
+            scheduler.sink    each `token_sink` call (the caller's code)
+          telemetry.read      reading the step's region times
+
+    `Engine.step_pipelined()` records the same runner spans under its
+    own phases: ``scheduler.schedule``, ``engine.launch`` (runner.execute
+    and the structural ``scheduler.commit``) and ``engine.land`` (the
+    runner's sync and sample, the token ``scheduler.commit``), then
+    ``telemetry.read``. Top-level spans besides: ``gc``, every
+    interpreter collection while the hub lives, and ``request.wait``,
+    from a request's `submit()` to the start of the ``runner.execute``
+    span that runs its first prefill chunk (that chunk's spans carry the
+    same request id). The lockstep API (`Engine.prefill` / `decode`)
+    writes no step event: each of its calls drops the spans pending.
+  * ``device_ms`` — ``{step kind: {region: ms}}`` for the step's eager
+    forwards on the CPU, summed by region: ``embed``, each layer's mixer
+    (``attn``, ``cross``, ``ssm``) and FFN (``mlp``, ``moe``), and
+    ``head`` (last-row gather, final norm, unembedding), stamped on the
+    host clock at the region boundaries. On the card the steps are
+    captured graphs, which hold the step's kernels alone, with or
+    without a hub: there the regions come as `Telemetry.kernel_regions`,
+    the region of each device operation of a kind's graph in launch
+    order (from a profiled eager run at capture), by which a profile of
+    the replays is labelled position by position.
+
 Everything hangs off one :class:`Telemetry` hub passed to the Engine;
 ``telemetry=None`` (the default) keeps every hook behind a single
 ``is not None`` check, so the disabled path costs nothing and the
@@ -32,9 +79,12 @@ Everything hangs off one :class:`Telemetry` hub passed to the Engine;
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import json
 import time
+import weakref
 from typing import Any, Callable, Iterator, Mapping
 
 # ---------------------------------------------------------------------------
@@ -348,7 +398,10 @@ class RequestMetrics:
 # flight-recorder event schema + JSONL serialization
 # ---------------------------------------------------------------------------
 
-TRACE_SCHEMA_VERSION = 1
+TRACE_SCHEMA_VERSION = 2
+
+#: the columns of a step event's span rows
+SPAN_FIELDS = ("name", "start", "end", "parent", "request_id", "detail")
 
 #: kind -> {field: allowed types}. Validation is strict on the top level:
 #: unknown kinds and unknown or missing fields raise, so a producer typo
@@ -363,7 +416,9 @@ EVENT_SCHEMA: dict[str, dict[str, tuple]] = {
              "reclaims": (list,),     # {kind,slot,request_id,n_pages}
              "swap_ins": (list,),     # {slot,request_id,n_pages,length}
              "timings": (dict,),      # {schedule,execute,commit,fenced}
-             "pool": (dict,)},        # allocator/swap/state watermarks
+             "pool": (dict,),         # allocator/swap/state watermarks
+             "spans": (list,),        # SPAN_FIELDS rows
+             "device_ms": (dict,)},   # {kind: {region: ms}}
     "request": {f.name: object for f in dataclasses.fields(RequestMetrics)},
     "check": {"ts": _NUM, "ok": (bool,), "error": (str,)},
 }
@@ -453,7 +508,8 @@ def _plan_rows(entries, fields) -> list[dict]:
 
 
 def plan_event(plan, *, step: int, ts: float, timings: Mapping,
-               pool: Mapping) -> dict:
+               pool: Mapping, spans: list | None = None,
+               device_ms: Mapping | None = None) -> dict:
     """Build the per-step flight-recorder event from a frozen
     SchedulePlan. Duck-typed field access keeps this module import-free
     of the scheduler (which imports us); plain JSON values only."""
@@ -476,6 +532,8 @@ def plan_event(plan, *, step: int, ts: float, timings: Mapping,
                      for si in plan.swap_ins],
         "timings": dict(timings),
         "pool": dict(pool),
+        "spans": [] if spans is None else spans,
+        "device_ms": {} if device_ms is None else dict(device_ms),
     }
 
 
@@ -522,6 +580,71 @@ class FlightRecorder:
 
 
 # ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+#: what `span` returns without a hub
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(telemetry: "Telemetry | None", name: str,
+         request_id: int | None = None, detail=None):
+    """``telemetry.span(name, request_id, detail)``, or a no-op context
+    without a hub (the one test a hook pays on the disabled path)."""
+    return NO_SPAN if telemetry is None else telemetry.span(
+        name, request_id, detail)
+
+
+class _Span:
+    """One span as a context: opened on entry, closed on exit; the row is
+    what ``with ... as row`` binds (``row[1]`` its start, ``row[2]`` its
+    end once closed)."""
+    __slots__ = ("hub", "name", "request_id", "detail", "row")
+
+    def __init__(self, hub: "Telemetry", name: str, request_id, detail):
+        self.hub, self.name = hub, name
+        self.request_id, self.detail = request_id, detail
+
+    def __enter__(self) -> list:
+        self.row = self.hub._open_span(self.name, self.request_id,
+                                       self.detail)
+        return self.row
+
+    def __exit__(self, *exc) -> bool:
+        self.hub._close_span(self.row)
+        return False
+
+
+def _drop_gc_callback(callback) -> None:
+    try:
+        gc.callbacks.remove(callback)
+    except ValueError:
+        pass
+
+
+def _watch_gc(hub: "Telemetry") -> None:
+    """Record a ``gc`` span for every collection while `hub` lives: the
+    callback holds it through a weak reference, and a finalizer takes the
+    callback off ``gc.callbacks`` once the hub is dropped."""
+    ref = weakref.ref(hub)
+
+    def on_gc(phase: str, info: dict) -> None:
+        h = ref()
+        if h is None:
+            return
+        now = h.clock()
+        if phase == "start":
+            h._gc_start = now
+        elif h._gc_start is not None:
+            h._gc_rows.append(["gc", h._gc_start, now, None, None,
+                               info.get("generation")])
+            h._gc_start = None
+
+    gc.callbacks.append(on_gc)
+    weakref.finalize(hub, _drop_gc_callback, on_gc)
+
+
+# ---------------------------------------------------------------------------
 # the hub
 # ---------------------------------------------------------------------------
 
@@ -539,6 +662,13 @@ class Telemetry:
     execute->commit boundary, so the recorded execute time is device
     time, not dispatch time — the baseline an async double-buffered
     engine must beat. Off by default: fencing serializes the pipeline.
+
+    Spans (`span`) are kept in memory, stamped with `clock`,
+    and handed to the next step event `record_step` writes; from its
+    creation until it is dropped the hub also records a ``gc`` span for
+    each interpreter collection. `kernel_regions` (set by the runner at
+    capture, on the card): ``{step kind: [[device op name, region],
+    ...]}`` in the kind's graph's launch order.
     """
 
     def __init__(self, *, registry: MetricsRegistry | None = None,
@@ -570,6 +700,54 @@ class Telemetry:
         self._h_overlap = h("step_overlap_seconds",
                             "host schedule time hidden under the previous "
                             "step's device window (pipelined mode)")
+        self._spans: list[list] = []      # rows awaiting a step event
+        self._top: list | None = None     # the innermost open span
+        self._gc_rows: collections.deque = collections.deque()
+        self._gc_start: float | None = None
+        self.kernel_regions: dict[str, list[list[str]]] = {}
+        _watch_gc(self)
+
+    # -- spans -----------------------------------------------------------
+    def span(self, name: str, request_id: int | None = None,
+             detail=None) -> _Span:
+        """A context that records span `name` around its body, inside the
+        innermost span open when it is entered."""
+        return _Span(self, name, request_id, detail)
+
+    def _open_span(self, name: str, request_id: int | None = None,
+                   detail=None) -> list:
+        row = [name, self.clock(), None, self._top, request_id, detail]
+        self._spans.append(row)
+        self._top = row
+        return row
+
+    def _close_span(self, row: list) -> None:
+        row[2] = self.clock()
+        self._top = row[3]
+
+    def _add_span(self, name: str, start: float, end: float,
+                 request_id: int | None = None) -> None:
+        """A top-level span whose bounds were stamped already."""
+        self._spans.append([name, start, end, None, request_id, None])
+
+    def drop_spans(self) -> None:
+        """Forget the closed spans and gc spans no step event has taken
+        (the lockstep API, which writes none, calls this each step)."""
+        self._spans = [r for r in self._spans if r[2] is None]
+        self._gc_rows.clear()
+
+    def _take_spans(self) -> list[list]:
+        """The closed spans and gc spans since the last call, as event
+        rows; a parent is its row's index, or None when it is not among
+        them. Open spans wait for the next call."""
+        closed = [r for r in self._spans if r[2] is not None]
+        self._spans = [r for r in self._spans if r[2] is None]
+        while self._gc_rows:
+            closed.append(self._gc_rows.popleft())
+        index = {id(r): i for i, r in enumerate(closed)}
+        return [[r[0], r[1], r[2],
+                 None if r[3] is None else index.get(id(r[3])), r[4], r[5]]
+                for r in closed]
 
     # -- request lifecycle (scheduler side) -----------------------------
     def on_submit(self, request_id: int, prompt_len: int) -> None:
@@ -637,12 +815,17 @@ class Telemetry:
         self._finished.append(rec)
 
     # -- request lifecycle (runner side) --------------------------------
-    def on_chunk(self, request_id: int) -> None:
+    def on_chunk(self, request_id: int, ts: float) -> None:
+        """A prefill chunk of the request runs in the step whose
+        ``runner.execute`` span starts at `ts`: its first chunk stamps
+        `first_chunk_ts` there and records the ``request.wait`` span from
+        `submit()`."""
         rec = self._live.get(request_id)
         if rec is None:
             return
         if rec.first_chunk_ts is None:
-            rec.first_chunk_ts = self.clock()
+            rec.first_chunk_ts = ts
+            self._add_span("request.wait", rec.submit_ts, ts, request_id)
         rec.prefill_chunks += 1
 
     def on_swap_bytes(self, request_id: int, *, out: int = 0,
@@ -662,9 +845,16 @@ class Telemetry:
         return list(self._live.values())
 
     # -- flight recorder -------------------------------------------------
-    def record_step(self, plan, *, timings: Mapping, pool: Mapping) -> None:
-        ev = plan_event(plan, step=self.step_idx, ts=self.clock(),
-                        timings=timings, pool=pool)
+    def record_step(self, plan, *, timings: Mapping, pool: Mapping,
+                    ts: float | None = None,
+                    device_ms: Mapping | None = None) -> None:
+        """Record the step event of `plan`, stamped `ts` (default now),
+        with the spans closed since the previous event and the step's
+        region times."""
+        ev = plan_event(plan, step=self.step_idx,
+                        ts=self.clock() if ts is None else ts,
+                        timings=timings, pool=pool,
+                        spans=self._take_spans(), device_ms=device_ms)
         self.recorder.record(ev)
         self._h_sched.observe(timings["schedule"])
         self._h_exec.observe(timings["execute"])

@@ -125,6 +125,56 @@ def test_overlap_fraction_and_step_events():
                                          "fenced"}
 
 
+def test_pipelined_spans_follow_its_phases():
+    """Pipelined step events carry the same runner spans under the
+    pipelined phases: `scheduler.schedule`, `engine.launch` (the
+    dispatch, `runner.execute` and the structural commit) and
+    `engine.land` (the runner's sync and sample, the token commit), then
+    `telemetry.read`; each event holds the spans closed since the one
+    before, and every request's `request.wait` ends where the
+    `runner.execute` of its first chunk starts."""
+    runner = {"runner.swap", "runner.state", "runner.stage",
+              "runner.replay", "runner.account", "runner.sync",
+              "runner.sample"}
+    children = {None: {"scheduler.schedule", "engine.launch", "engine.land",
+                       "telemetry.read", "gc", "request.wait"},
+                "engine.launch": {"runner.execute", "scheduler.commit"},
+                "engine.land": {"runner.sync", "runner.sample",
+                                "scheduler.commit"},
+                "runner.execute": runner, "runner.stage": {"runner.sync"},
+                "scheduler.commit": {"scheduler.sink"}}
+    tel = Telemetry()
+    eng = _engine(OVERCOMMIT, telemetry=tel)
+    eng.scheduler.token_sink = lambda rid, tok: None
+    ids = _submit_workload(eng)
+    eng.run_pipelined()
+    events = [e for e in tel.recorder.events() if e["kind"] == "step"]
+    names, waits, last = set(), set(), -1.0
+    for ev in events:
+        rows = ev["spans"]
+        for r in rows:
+            parent = None if r[3] is None else rows[r[3]][0]
+            assert r[0] in children[parent], (parent, r[0])
+            if r[3] is not None:
+                assert rows[r[3]][1] <= r[1] and r[2] <= rows[r[3]][2]
+            if r[0] == "request.wait":
+                waits.add(r[4])
+                assert r[2] in [x[1] for x in rows
+                                if x[0] == "runner.execute"]
+            elif r[0] != "gc":
+                assert r[1] > last     # closed since the previous event
+        last = max(r[2] for r in rows if r[0] not in ("gc", "request.wait"))
+        names |= {r[0] for r in rows}
+        assert [r[0] for r in rows].count("engine.land") == 1
+        assert set(ev["device_ms"]) == ({"prefill"} if ev["prefill"]
+                                        else set()) | ({"decode"} if
+                                                       ev["decode"] else set())
+    assert {"scheduler.schedule", "engine.launch", "engine.land",
+            "runner.execute", "runner.replay", "runner.sample",
+            "scheduler.sink", "telemetry.read"} <= names
+    assert waits == set(ids)
+
+
 def test_sync_step_flushes_inflight_work():
     """Pipelined steps followed by sync `step()`s lose nothing: the
     in-flight step lands first and the tokens equal the pure-sync run."""
@@ -355,7 +405,13 @@ def test_launcher_serving_flags(flags, capsys, tmp_path):
     if "--trace-file" in flags:
         assert "SLO (TTFT<=5000ms, ITL<=1000ms)" in text
         assert f"trace events -> {trace}" in text
-        assert {e["kind"] for e in load_trace(trace)} >= {"meta", "step"}
+        events = load_trace(trace)
+        assert {e["kind"] for e in events} >= {"meta", "step"}
+        steps = [e for e in events if e["kind"] == "step"]
+        assert all(e["device_ms"] for e in steps)
+        names = {r[0] for e in steps for r in e["spans"]}
+        assert {"engine.step", "runner.execute", "runner.replay",
+                "request.wait", "telemetry.read"} <= names
     if "--fence" in flags:
         assert "latency (p50/p95/p99): queue" in text
         assert "# TYPE repro_serve_step_execute_seconds histogram" in text
