@@ -1190,10 +1190,9 @@ def _generate(eng, prompts, extras, gen: int):
 def _graph_vs_eager(cfg, model, scfg, prompts, extras=None) -> None:
     """On the card, the CUDA-graph step against the eager step of one
     engine configuration: the logits of two prefill chunks (one slot
-    each, the other idle; the first with slot 0's image when `extras`
-    gives prompt 0 one) and three decode steps through the runners'
-    low-level steps, and greedy tokens through the Engine, equal bit for
-    bit."""
+    each; the first with slot 0's image when `extras` gives prompt 0
+    one) and three decode steps through the runners' low-level steps,
+    and greedy tokens through the Engine, equal bit for bit."""
     import numpy as np
     import torch
     from repro_torch.serve.runner import _chunk_extra
@@ -1206,15 +1205,12 @@ def _graph_vs_eager(cfg, model, scfg, prompts, extras=None) -> None:
     chunk = scfg["prefill_chunk"]
     steps = []
     for slot, nv in ((0, chunk), (1, 41)):
-        tok = np.zeros((2, chunk), np.int32)
-        tok[slot, :nv] = rng.integers(0, cfg.vocab_size, nv)
+        tok = rng.integers(0, cfg.vocab_size, nv).astype(np.int32)
         extra = (_chunk_extra(extras[0], nv, 0, nv, chunk)
                  if slot == 0 else None)
-        steps.append(("prefill", (tok, np.zeros(2, np.int32),
-                                  np.arange(2) == slot,
-                                  np.where(np.arange(2) == slot, nv,
-                                           0).astype(np.int32), bt, st,
-                                  extra, np.array([slot]))))
+        steps.append(("prefill", (slot, tok, 0,
+                                  None if bt is None else bt[slot],
+                                  int(st[slot]), extra)))
     for i in range(3):
         steps.append(("decode", (
             rng.integers(0, cfg.vocab_size, 2).astype(np.int32),

@@ -303,13 +303,15 @@ def cross_cache_write(pool: dict, new: dict, entries: torch.Tensor,
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
                  axis: int, n_valid: torch.Tensor | None = None,
-                 active: torch.Tensor | None = None) -> None:
+                 active: torch.Tensor | None = None,
+                 slots: torch.Tensor | None = None) -> None:
     """Write `new` into the dense cache `buf` at per-slot positions, in
     place.
 
-    buf [B, ...] with max_len+1 positions on `axis` (the last one the trash
-    position); new [B, ...] with S tokens on `axis`; pos [B] position of
-    new's token 0 per slot. Exactly [pos, pos + n_valid) of active rows is
+    buf [slots, ...] with max_len+1 positions on `axis` (the last one the
+    trash position); new [B, ...] with S tokens on `axis`, row b into
+    slot `slots[b]` (default: slot b); pos [B] position of new's token 0
+    per row. Exactly [pos, pos + n_valid) of active rows is
     written; padding tokens (j >= n_valid[b]), inactive rows and positions
     past max_len go to the trash position. Dropped tokens are never
     clamped onto real positions: index_put_ with duplicate indices that
@@ -324,7 +326,8 @@ def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         ok = ok & (steps[None] < n_valid.to(torch.int64)[:, None])
     if active is not None:
         ok = ok & active[:, None]
-    rows = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    rows = (torch.arange(b, device=buf.device) if slots is None
+            else slots)[:, None].expand(b, s)
     # a view with the token axis second: index_put_ writes through it
     torch.movedim(buf, axis, 1)[rows, torch.where(ok, gpos, trash)] = \
         torch.movedim(new, axis, 1).to(buf.dtype)
@@ -333,21 +336,32 @@ def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
 def _update_binary_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
                          pos: torch.Tensor,
                          n_valid: torch.Tensor | None = None,
-                         active: torch.Tensor | None = None) -> None:
-    """k, v [B, Hk, S, Dh] written into the dense cache in place."""
+                         active: torch.Tensor | None = None,
+                         slots: torch.Tensor | None = None) -> None:
+    """k, v [B, Hk, S, Dh] written into the dense cache (its rows
+    `slots`) in place."""
     kb = hamming.pack_bits(k.to(torch.float32))            # [B, Hk, S, W]
     _cache_write(cache["k_bits"], kb.transpose(-1, -2), pos, axis=3,
-                 n_valid=n_valid, active=active)
-    _cache_write(cache["v"], v, pos, axis=2, n_valid=n_valid, active=active)
+                 n_valid=n_valid, active=active, slots=slots)
+    _cache_write(cache["v"], v, pos, axis=2, n_valid=n_valid, active=active,
+                 slots=slots)
 
 
 def _update_std_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
                       pos: torch.Tensor, n_valid: torch.Tensor | None = None,
-                      active: torch.Tensor | None = None) -> None:
-    """Full precision: k, v [B, Hk, S, Dh] written into the dense cache in
-    place."""
-    _cache_write(cache["k"], k, pos, axis=2, n_valid=n_valid, active=active)
-    _cache_write(cache["v"], v, pos, axis=2, n_valid=n_valid, active=active)
+                      active: torch.Tensor | None = None,
+                      slots: torch.Tensor | None = None) -> None:
+    """Full precision: k, v [B, Hk, S, Dh] written into the dense cache
+    (its rows `slots`) in place."""
+    for name, new in (("k", k), ("v", v)):
+        _cache_write(cache[name], new, pos, axis=2, n_valid=n_valid,
+                     active=active, slots=slots)
+
+
+def _dense_rows(cache: dict, slots: torch.Tensor | None) -> dict:
+    """The dense cache, or its rows `slots` (a copy) for a step whose
+    batch rows address those slots."""
+    return cache if slots is None else common.pool_read(cache, slots)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
@@ -485,6 +499,7 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
                active: torch.Tensor | None = None,
                page_topn: int | None = None,
                binary: bool = True, cross: bool = False,
+               slots: torch.Tensor | None = None,
                group=None) -> torch.Tensor:
     """Prefill chunk (S > 1) or decode step (S == 1).
 
@@ -495,8 +510,10 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     page_topn: page-sparse decode over the paged cache (decode steps
     only); binary: the HAD path (False: the full-precision baseline);
     cross: a cross-attention layer over the static cache `cache` (a
-    [B, ...] view; see `_cross_attn`). Updates `cache` in place (a
-    self-attention layer) and returns y [B, S, D].
+    [B, ...] view; see `_cross_attn`); slots [B] int: the dense cache's
+    row of each batch row (default: row b is slot b; ignored by the
+    paged cache). Updates `cache` in place (a self-attention layer) and
+    returns y [B, S, D].
 
     group: the process group of tensor-parallel serving, where `p`, `cfg`
     and `cache` hold this rank's heads; the context is gathered over the
@@ -521,19 +538,20 @@ def attn_serve(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
         return _out(p, _attn_std(q, k, v, cfg=cfg, cache=cache, pos=pos,
                                  kv_len=kv_len, block_tables=block_tables,
                                  n_valid=n_valid, active=active,
-                                 page_topn=page_topn, group=group
-                                 ).to(x.dtype), group)
+                                 page_topn=page_topn, slots=slots,
+                                 group=group).to(x.dtype), group)
     qb = hamming.pack_bits(q.to(torch.float32))            # [B, H, S, W]
     if block_tables is None:
         _update_binary_cache(cache, k, v, pos, n_valid=n_valid,
-                             active=active)
+                             active=active, slots=slots)
+        rows = _dense_rows(cache, slots)
         if s == 1:
             y = ops.decode_attention(
-                qb[:, :, 0], cache["k_bits"], cache["v"], d=dh, nsel=n,
+                qb[:, :, 0], rows["k_bits"], rows["v"], d=dh, nsel=n,
                 scale=p.scale, lengths=kv_len, bitplanes=True)[:, :, None]
         else:
             y = ops.prefill_attention(
-                qb, ops.to_bitplanes(cache["k_bits"]), cache["v"], d=dh,
+                qb, ops.to_bitplanes(rows["k_bits"]), rows["v"], d=dh,
                 nsel=n, scale=p.scale, kv_length=kv_len, q_offset=pos,
                 q_length=n_valid, causal=cfg.causal)
         return _out(p, y.to(x.dtype), group)
@@ -596,15 +614,20 @@ def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               cfg: ModelConfig, cache: dict, pos: torch.Tensor,
               kv_len: torch.Tensor, block_tables: torch.Tensor | None,
               n_valid: torch.Tensor | None, active: torch.Tensor | None,
-              page_topn: int | None, group=None) -> torch.Tensor:
+              page_topn: int | None, slots: torch.Tensor | None = None,
+              group=None) -> torch.Tensor:
     """The full-precision branch of `attn_serve` (JAX
     ``attn_serve(binary=False)``): write the new K/V, gather the rows
     (paged) or take the dense cache, mask past each slot's length and run
-    ``standard_attention`` at scale dh^-0.5. Returns [B, H, S, Dh].
+    ``standard_attention`` at scale dh^-0.5. Returns [B, H, S, Dh]. A
+    dense cache is read and written at its rows `slots` when given.
 
     The dense cache is read as [..., :max_len, :], made contiguous, so that
     it reduces over the same shapes as the paged rows (nb * page
     positions): when max_len % page == 0 the two are bit-identical.
+
+    Each kv head's attention is its own product, so that a rank holding
+    some of the kv heads computes each as one device does.
 
     Page-sparse decode (paged, S == 1, page_topn) scores each page by its
     exact max QK logit over kv heads, grouped heads and in-page positions,
@@ -614,10 +637,12 @@ def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     b, _, s, dh = q.shape
     if block_tables is None:
-        _update_std_cache(cache, k, v, pos, n_valid=n_valid, active=active)
-        t_max = cache["v"].shape[2] - 1                    # less the trash
-        k_rows = cache["k"][:, :, :t_max].contiguous()
-        v_rows = cache["v"][:, :, :t_max].contiguous()
+        _update_std_cache(cache, k, v, pos, n_valid=n_valid, active=active,
+                          slots=slots)
+        rows = _dense_rows(cache, slots)
+        t_max = rows["v"].shape[2] - 1                     # less the trash
+        k_rows = rows["k"][:, :, :t_max].contiguous()
+        v_rows = rows["v"][:, :, :t_max].contiguous()
     else:
         _update_std_cache_paged(cache, k, v, pos, block_tables,
                                 n_valid=n_valid, active=active)
@@ -638,6 +663,13 @@ def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sc = collectives.all_reduce_max(sc, group)
         kv_valid = kv_valid & _page_topn_keep(sc, kv_len, page=page,
                                               n_sel=page_topn)
-    return standard_attention(q, k_rows, v_rows, scale=dh ** -0.5,
-                              causal=cfg.causal, q_offset=pos,
-                              kv_valid=kv_valid)
+    # one product a kv head: on the card a float32 GEMM's kernel, and so
+    # its rounding, depends on the batch count, which differs between one
+    # device (every kv head) and a tensor-parallel rank (its kv heads);
+    # a kv head alone is the same product on both
+    hk = k_rows.shape[1]
+    g = q.shape[1] // hk
+    return torch.cat([standard_attention(
+        q[:, i * g:(i + 1) * g], k_rows[:, i:i + 1], v_rows[:, i:i + 1],
+        scale=dh ** -0.5, causal=cfg.causal, q_offset=pos,
+        kv_valid=kv_valid) for i in range(hk)], dim=1)

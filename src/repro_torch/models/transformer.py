@@ -512,23 +512,28 @@ def fill_cross_caches(model: Transformer, caches: list[dict],
 
 def _cross_view(cache: dict, st: torch.Tensor | None,
                 st_ok: torch.Tensor | None,
-                zero: torch.Tensor | None) -> dict:
+                zero: torch.Tensor | None,
+                slots: torch.Tensor | None = None) -> dict:
     """A cross layer's cache as a [B, ...] view for one step: the dense
-    cache itself, or each row's pool entry gathered through `st`. Rows in
-    `zero` (fresh admissions without an image this step) are zeroed
-    first, in place: the dense rows, or the pool entries of rows that
-    hold one (rows without one read zeros)."""
-    if st is None:
+    cache itself, its rows `slots`, or each row's pool entry gathered
+    through `st`. Rows in `zero` (fresh admissions without an image this
+    step) are zeroed first, in place: the dense rows, or the pool entries
+    of rows that hold one (rows without one read zeros)."""
+    if st is None and slots is None:
         if zero is not None:
             m = zero.reshape(-1, 1, 1, 1)
             for leaf in cache.values():
                 leaf.masked_fill_(m, 0)
         return cache
-    view = AB.cross_cache_read(cache, st)
+    view = AB.cross_cache_read(cache, slots if st is None else st)
     if zero is not None:
         m = zero.reshape(-1, 1, 1, 1)
         view = {name: leaf.masked_fill(m, 0) for name, leaf in view.items()}
-        AB.cross_cache_write(cache, view, st, st_ok & zero)
+        if st is None:
+            for name, leaf in cache.items():
+                leaf.index_copy_(0, slots, view[name])
+        else:
+            AB.cross_cache_write(cache, view, st, st_ok & zero)
     return view
 
 
@@ -536,13 +541,19 @@ def _ssm_serve(blk: Block, h: torch.Tensor, cache: dict, *,
                cfg: ModelConfig, st: torch.Tensor | None,
                st_ok: torch.Tensor | None, active: torch.Tensor | None,
                n_valid: torch.Tensor | None,
-               fresh: torch.Tensor | None) -> torch.Tensor:
+               fresh: torch.Tensor | None,
+               slots: torch.Tensor | None = None) -> torch.Tensor:
     """An SSM layer's step (JAX serve_step's "M" branch): read the rows'
-    state (dense rows, or pool entries through `st`), zero the `fresh`
-    rows' view, run the chunk (`ssm_forward`) or the decode step
-    (`ssm_decode`), and write the new state back in place: pool entries
-    of the `st_ok` rows, or the dense rows that are `active`."""
-    view = cache if st is None else ssm.state_read(cache, st)
+    state (dense rows, the dense rows `slots`, or pool entries through
+    `st`), zero the `fresh` rows' view, run the chunk (`ssm_forward`) or
+    the decode step (`ssm_decode`), and write the new state back in
+    place: pool entries of the `st_ok` rows, or the dense rows that are
+    `active`."""
+    if st is not None:
+        view = ssm.state_read(cache, st)
+    else:
+        view = rows = (cache if slots is None
+                       else ssm.state_read(cache, slots))
     if fresh is not None:
         view = {name: leaf.masked_fill(
             fresh.reshape((-1,) + (1,) * (leaf.ndim - 1)), 0)
@@ -560,8 +571,11 @@ def _ssm_serve(blk: Block, h: torch.Tensor, cache: dict, *,
             if active is not None:
                 val = torch.where(
                     active.reshape((-1,) + (1,) * (leaf.ndim - 1)), val,
-                    leaf)
-            leaf.copy_(val)
+                    rows[name])
+            if slots is None:
+                leaf.copy_(val)
+            else:
+                leaf.index_copy_(0, slots, val)
     return mix
 
 
@@ -579,6 +593,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                logits_mode: str = "all",
                frames: torch.Tensor | None = None,
                frames_rows: torch.Tensor | None = None,
+               slots: torch.Tensor | None = None,
                group=None, marks=None) -> torch.Tensor:
     """Prefill (tokens [B, S>1]) or decode (tokens [B, 1]) against the
     caches, which are updated in place.
@@ -610,6 +625,11 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     in the rows `frames_rows` [B] bool (default: every row). Learned
     positions add ``pos_embed[:S]``, as the JAX step does.
 
+    slots [B] int: the row (slot) of the dense caches that each batch row
+    reads and writes (the serving runner's one-row prefill chunk);
+    default: row b is slot b. Page pools and pooled state are addressed by
+    their tables instead.
+
     logits_mode="last" returns each row's logits at its last valid
     position only. Returns float32 logits [B, S or 1, padded_vocab].
 
@@ -634,12 +654,15 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     if state_tables is not None:
         st = state_tables.to(torch.int64)
         st_ok = st >= 0 if active is None else (st >= 0) & active
+    if slots is not None:
+        slots = slots.to(torch.int64)
     if image_embeds is not None:
         live = (torch.ones((b,), dtype=torch.bool, device=tokens.device)
                 if active is None else active)
         if st is None:
             fill_cross_caches(model, caches, image_embeds,
-                              torch.arange(b, device=tokens.device), live,
+                              torch.arange(b, device=tokens.device)
+                              if slots is None else slots, live,
                               pooled=False, binary=binary)
         else:
             fill_cross_caches(model, caches, image_embeds, st, st_ok,
@@ -662,9 +685,10 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
         h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
         if kind == "M":
             x = x + _ssm_serve(blk, h, cache, cfg=cfg, st=st, st_ok=st_ok,
-                               active=active, n_valid=n_valid, fresh=fresh)
+                               active=active, n_valid=n_valid, fresh=fresh,
+                               slots=slots)
         elif kind == "C":
-            view = _cross_view(cache, st, st_ok, zero)
+            view = _cross_view(cache, st, st_ok, zero, slots)
             x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=view,
                                   pos=pos, n=n, binary=binary, cross=True,
                                   group=group)
@@ -673,7 +697,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
                                   pos=pos, n=n, block_tables=block_tables,
                                   n_valid=n_valid, active=active,
                                   page_topn=page_topn, binary=binary,
-                                  group=group)
+                                  slots=slots, group=group)
         if marks is not None:
             marks(MIXER_REGIONS[kind])
         if cfg.d_ff > 0:

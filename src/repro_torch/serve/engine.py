@@ -433,7 +433,8 @@ class Engine:
         dropped with their caches, sampling rngs and pending tokens) and
         raises if requests are still queued. Returns last-position logits
         [batch_slots, V], a copy: the step's own output is overwritten by
-        the next step. Runs on the scheduler's padded-chunk graph."""
+        the next step. Runs on the scheduler's prefill-chunk graph, one
+        replay a slot a chunk."""
         if self.queue:
             raise RuntimeError(
                 f"lockstep prefill() with {len(self.queue)} queued "
@@ -450,25 +451,25 @@ class Engine:
         if self.scfg.paged:
             for i in range(b):  # lockstep never preempts: all-or-error
                 self.scheduler.lockstep_alloc(i, s)
-        logits = None
-        lo = 0
-        while lo < s:
+        tables, states = self.block_tables, self.state_tables
+        last = [None] * b
+        for lo in range(0, s, self.chunk):
             hi = min(lo + self.chunk, s)
-            nv = hi - lo
-            padded = np.zeros((b, self.chunk), np.int32)
-            padded[:, :nv] = tokens[:, lo:hi]
-            logits = self.runner.prefill_step(
-                padded, np.full((b,), lo, np.int32), np.ones((b,), bool),
-                np.full((b,), nv, np.int32), self.block_tables,
-                self.state_tables,
-                _chunk_extra(extra, s, lo, hi, self.chunk))
-            lo = hi
+            extra_rows = _chunk_extra(extra, s, lo, hi, self.chunk)
+            for i in range(b):
+                logits = self.runner.prefill_step(
+                    i, tokens[i, lo:hi], lo,
+                    None if tables is None else tables[i],
+                    -1 if states is None else int(states[i]),
+                    {k: v[i:i + 1] for k, v in extra_rows.items()})
+                if hi == s:
+                    last[i] = logits[:, -1, :self.cfg.vocab_size].clone()
         for slot in self.slots:
             slot.length = s
             slot.prefill_pos = s
         if self.telemetry is not None:
             self.telemetry.drop_spans()    # no step event takes them
-        return logits[:, -1, :self.cfg.vocab_size].clone()
+        return torch.cat(last)
 
     def decode(self, tokens: np.ndarray) -> torch.Tensor:
         """One ragged decode step for every slot. tokens: [batch_slots]

@@ -42,10 +42,14 @@ sampled and pending swap-out bytes land. A pipelined engine schedules the
 next plan between the two.
 
 Each step runs as a replay of one of at most two CUDA graphs per runner,
-one for the padded prefill chunk and one for the decode step (the
-counterpart of the JAX runner's one jit trace each): every plan array of
-a step sits in one static device buffer, filled from a host staging
-buffer by one copy, and the graph is captured at the kind's first use.
+one for a prefill chunk and one for the decode step (the counterpart of
+the JAX runner's one jit trace each): every plan array of a step sits in
+one static device buffer, filled from a host staging buffer by one copy,
+and the graph is captured at the kind's first use. A prefill chunk
+carries its own slot's row only ([1, chunk] tokens, its block table row
+and state entry; a dense engine's caches are read and written through
+the `slot` input), so a chunk computes no dead rows; the decode step
+carries every slot.
 The graphs hold the addresses of the cache tensors, so every write
 outside them (swap-in, `reset_caches`) is in place, never a rebinding.
 `ModelRunner(eager=True)` runs the same step op by op instead, to compare
@@ -218,11 +222,12 @@ class _PendingStep:
 
 class _StepInputs:
     """The static inputs of one step kind: every plan array of the step
-    (tokens [B, S], pos, active and n_valid [B], block tables [B, nb],
-    state tables [B]) in one int32 device buffer, filled from one host
-    staging buffer (pinned on the card) by one copy a step. The step reads
-    views of the device buffer, so a captured graph sees each new plan at
-    the same addresses."""
+    (tokens [R, S], pos, active and n_valid [R], block tables [R, nb],
+    state tables [R], a dense engine's `slot` [1]; R rows: every slot in
+    a decode step, the chunk's one slot in a prefill chunk) in one int32
+    device buffer, filled from one host staging buffer (pinned on the
+    card) by one copy a step. The step reads views of the device buffer,
+    so a captured graph sees each new plan at the same addresses."""
 
     def __init__(self, shapes: dict[str, tuple[int, ...]], device):
         sizes = [math.prod(shape) for shape in shapes.values()]
@@ -258,8 +263,8 @@ class _StepInputs:
 
     def stage_null(self) -> None:
         """The null plan: every row inactive, n_valid 0, every table entry
-        -1, so every cache write of a step lands in the trash page,
-        position or entry."""
+        -1 (a dense engine's slot 0), so every cache write of a step lands
+        in the trash page, position or entry."""
         self.wait()
         self.stage(**{name: -1 if name in ("tables", "state") else 0
                       for name in self.views})
@@ -382,23 +387,32 @@ class ModelRunner:
             binary=scfg.binary, state_pages=self.n_state_pages or None,
             device=self.device)
         b = scfg.batch_slots
-        tables = ({"tables": (b, pages_needed(scfg.max_len, self.page))}
-                  if scfg.paged else {})
-        if self._state_layers:
-            tables["state"] = (b,)
+        nb = pages_needed(scfg.max_len, self.page)
+
+        def tables(rows: int) -> dict:
+            out = {"tables": (rows, nb)} if scfg.paged else {}
+            if self._state_layers:
+                out["state"] = (rows,)
+            return out
+
+        # a prefill chunk carries its slot's row only: its block table row
+        # and state entry address the pools; a dense cache's row is
+        # addressed by the `slot` input
+        slot = {} if scfg.paged else {"slot": (1,)}
         # a model with a frontend embeds `frames` prefill chunks through
-        # it: the rows' frames land in this static buffer, and the
-        # prefill inputs' `frames` row flags pick them over the tokens
-        self._frames = (torch.zeros((b, self.chunk, cfg.frontend_dim),
+        # it: the chunk's frames land in this static buffer, and the
+        # prefill input's `frames` flag picks them over the tokens
+        self._frames = (torch.zeros((1, self.chunk, cfg.frontend_dim),
                                     dtype=cfg.dtype, device=self.device)
                         if cfg.frontend_dim else None)
-        frames = {"frames": (b,)} if cfg.frontend_dim else {}
+        frames = {"frames": (1,)} if cfg.frontend_dim else {}
         self._inputs = {
-            "prefill": _StepInputs(dict(tokens=(b, self.chunk), pos=(b,),
-                                        active=(b,), n_valid=(b,), **tables,
-                                        **frames), self.device),
+            "prefill": _StepInputs(dict(tokens=(1, self.chunk), pos=(1,),
+                                        active=(1,), n_valid=(1,),
+                                        **tables(1), **slot, **frames),
+                                   self.device),
             "decode": _StepInputs(dict(tokens=(b, 1), pos=(b,), active=(b,),
-                                       **tables), self.device)}
+                                       **tables(b)), self.device)}
         self._graphs: dict[str, _Graph] = {}
         self._pool = None               # the graphs' shared memory pool
         cuda = self.device.type == "cuda"
@@ -509,15 +523,16 @@ class ModelRunner:
     # the step: static buffers, one graph per kind
     # ------------------------------------------------------------------
     def graph_count(self) -> int:
-        """Step graphs captured so far: at most 2 (the padded prefill chunk
-        and the decode step), whatever the prompt lengths. On the CPU,
+        """Step graphs captured so far: at most 2 (the one-row prefill
+        chunk and the decode step), whatever the prompt lengths. On the CPU,
         which has no graphs, the step kinds warmed up on the static
         buffers; 0 with eager=True."""
         return len(self._graphs)
 
     def _forward(self, kind: str, marks=None) -> torch.Tensor:
         """serve_step on the static inputs of `kind`, calling `marks` at
-        its region boundaries; logits [B, 1, V]."""
+        its region boundaries; logits [R, 1, V] (R rows: 1 in a prefill
+        chunk)."""
         v = self._inputs[kind].views
         frames = "frames" in v
         return T.serve_step(
@@ -529,7 +544,7 @@ class ModelRunner:
             zero_fresh=False, logits_mode="last",
             frames=self._frames if frames else None,
             frames_rows=v["frames"] != 0 if frames else None,
-            group=self.group, marks=marks)
+            slots=v.get("slot"), group=self.group, marks=marks)
 
     def _marks(self, kind: str) -> _Regions | None:
         """The region times of `kind`'s eager forwards on the CPU while a
@@ -622,7 +637,7 @@ class ModelRunner:
     def _step(self, kind: str, **arrays) -> torch.Tensor:
         """Stage one step's plan arrays and run it: a replay of the kind's
         graph (captured at first use), or serve_step itself when eager or
-        on the CPU. Returns logits [B, 1, V]."""
+        on the CPU. Returns logits [R, 1, V]."""
         if not self.eager and kind not in self._graphs:
             self._graphs[kind] = self._capture(kind)
         inp, tel, rid = self._inputs[kind], self.telemetry, self._rid
@@ -651,81 +666,74 @@ class ModelRunner:
                             if state_tables is None else state_tables)
         return out
 
-    def _write_state(self, emb, rows: np.ndarray, pos, active,
-                     state: np.ndarray | None) -> None:
-        """Write the per-slot state a prefill chunk reads, in place and
-        outside the step graph (the graph zeroes none of it): every active
-        slot that starts a request in this chunk (pos 0) has its SSM state
-        zeroed, and its cross caches too, unless it is among `rows` with
-        image embeddings (`emb` [len(rows), T_img, frontend_dim], or
-        None), which fill them. So a refilled slot never reads the
-        previous occupant's state or image (JAX zeroes a fresh
-        admission's entry, and a fresh dense row inside its step). A
-        slot's state is its dense row, or its entry in `state` (slots with
-        entry -1 are skipped)."""
-        live = np.asarray(active, bool)
-        fresh = live & (np.asarray(pos) == 0)
-        dev = self.device
-        filled = np.zeros_like(fresh)
-        if emb is not None and self._cross_layers:
-            keep = live[rows]
-            rows, emb = rows[keep], np.asarray(emb)[keep]
-            filled[rows] = True
-            idx = rows if state is None else np.asarray(state)[rows]
+    def _write_state(self, emb, slot: int, pos: int, entry: int) -> None:
+        """Write the state a prefill chunk of `slot` reads, in place and
+        outside the step graph (the graph zeroes none of it): a chunk that
+        starts a request (pos 0) has its SSM state zeroed, and its cross
+        caches too, unless image embeddings (`emb` [1, T_img,
+        frontend_dim], or None) fill them. So a refilled slot never reads
+        the previous occupant's state or image (JAX zeroes a fresh
+        admission's entry, and a fresh dense row inside its step). The
+        slot's state is its dense row, or its pooled `entry` (-1 when it
+        holds none: nothing is written)."""
+        pooled = bool(self._state_layers)
+        idx = entry if pooled else slot
+        filled = emb is not None and bool(self._cross_layers)
+        if filled:
+            dev = self.device
             T.fill_cross_caches(
-                self.model, self.caches, torch.from_numpy(emb).to(dev),
-                torch.from_numpy(idx.astype(np.int64)).to(dev),
-                torch.from_numpy(idx >= 0).to(dev),
-                pooled=state is not None, binary=self.scfg.binary)
-        for zero, layers in ((fresh, self._ssm_layers),
-                             (fresh & ~filled, self._cross_layers)):
-            zero = np.flatnonzero(zero)
-            if state is not None:
-                zero = np.asarray(state)[zero]
-                zero = zero[zero >= 0]
-            if zero.size and layers:
-                self._state_zero(zero, layers)
+                self.model, self.caches, torch.from_numpy(
+                    np.asarray(emb)).to(dev),
+                torch.tensor([idx], dtype=torch.int64, device=dev),
+                torch.tensor([idx >= 0], device=dev), pooled=pooled,
+                binary=self.scfg.binary)
+        if pos != 0 or idx < 0:
+            return
+        layers = self._ssm_layers + ([] if filled else self._cross_layers)
+        if layers:
+            self._state_zero(np.array([idx]), layers)
 
     @_mirrored
-    def prefill_step(self, tokens: np.ndarray, pos: np.ndarray,
-                     active: np.ndarray, n_valid: np.ndarray,
-                     block_tables: np.ndarray | None,
-                     state_tables: np.ndarray | None = None,
-                     extra: dict | None = None,
-                     rows: np.ndarray | None = None) -> torch.Tensor:
-        """One padded prefill chunk: tokens [B, chunk] zero-padded, per-row
-        pos/active/n_valid masks, the state tables of a pooled-state
-        engine, and the chunk's extra inputs (`_chunk_extra`), one entry
-        per slot in `rows` (default: every slot, [B, ...]). Before the
-        replay, fresh slots' SSM state is zeroed, and image embeddings
-        fill their active slots' cross caches and the other fresh slots'
-        are zeroed (`_write_state`). `frames` ([len(rows), chunk,
-        frontend_dim]) go to the static frames buffer, and those rows are
+    def prefill_step(self, slot: int, tokens: np.ndarray, pos: int,
+                     table: np.ndarray | None = None, entry: int = -1,
+                     extra: dict | None = None) -> torch.Tensor:
+        """One prefill chunk of one slot: its tokens ([n_valid], n_valid
+        <= chunk; zero-padded to the chunk) at cache position `pos`, the
+        slot's block table row ([nb], a paged engine) and its state entry
+        (a pooled-state engine; -1: none), and the chunk's extra inputs
+        (`_chunk_extra`, one row). Before the replay a fresh slot's SSM
+        state is zeroed, and image embeddings fill its cross caches, or
+        they are zeroed (`_write_state`). `frames` ([1, chunk,
+        frontend_dim]) go to the static frames buffer, and the chunk is
         embedded through ``frontend_proj`` instead of the token table.
-        Returns last-valid logits [B, 1, V], valid until the next step."""
+        Returns last-valid logits [1, 1, V], valid until the next step."""
         extra = extra or {}
-        arrays = self._tables(block_tables, state_tables)
-        rows = (np.arange(self.scfg.batch_slots) if rows is None
-                else np.asarray(rows))
+        nv = len(tokens)
+        row = np.zeros((1, self.chunk), np.int32)
+        row[0, :nv] = tokens
+        arrays = dict(tokens=row, pos=[pos], active=[1], n_valid=[nv])
+        if self.scfg.paged:
+            arrays["tables"] = table[None]
+        else:
+            arrays["slot"] = [slot]
+        if self._state_layers:
+            arrays["state"] = [entry]
         if self._frames is not None:
-            flags = np.zeros((self.scfg.batch_slots,), np.int32)
             if "frames" in extra:
-                flags[rows] = 1
-                self._frames[torch.from_numpy(rows).to(self.device)] = \
-                    torch.from_numpy(np.asarray(extra["frames"], np.float32)
-                                     ).to(self.device, self.cfg.dtype)
-            arrays["frames"] = flags
+                self._frames.copy_(torch.from_numpy(
+                    np.asarray(extra["frames"], np.float32)))
+            arrays["frames"] = [int("frames" in extra)]
         elif "frames" in extra:
             raise ValueError(f"{self.cfg.name} has no frontend "
                              f"(frontend_dim 0) to embed frames")
         if self._ssm_layers or self._cross_layers:  # else images are ignored
             with span(self.telemetry, "runner.state", self._rid):
-                self._write_state(extra.get("image_embeds"), rows, pos,
-                                  active, arrays.get("state"))
-        logits = self._step("prefill", tokens=tokens, pos=pos, active=active,
-                            n_valid=n_valid, **arrays)
+                self._write_state(extra.get("image_embeds"), slot, pos,
+                                  entry)
+        logits = self._step("prefill", **arrays)
         self.stats["prefill_chunks"] += 1
-        self.stats["prefill_tokens"] += int(np.asarray(n_valid).sum())
+        self.stats["prefill_rows"] += row.shape[0]
+        self.stats["prefill_tokens"] += nv
         return logits
 
     @_mirrored
@@ -805,18 +813,14 @@ class ModelRunner:
         for ch in plan.prefill:                     # 4. prefill chunks
             req = ch.request
             self._rid = req.request_id
-            nv = ch.hi - ch.lo
-            tokens = np.zeros((b, self.chunk), np.int32)
-            tokens[ch.slot, :nv] = req.tokens[ch.lo:ch.hi]
-            active = np.zeros((b,), bool)
-            active[ch.slot] = True
-            n_valid = np.zeros((b,), np.int32)
-            n_valid[ch.slot] = nv
             logits = self.prefill_step(
-                tokens, np.asarray(ch.pos, np.int32), active, n_valid,
-                plan.block_tables, plan.state_tables,
+                ch.slot, req.tokens[ch.lo:ch.hi], int(ch.pos[ch.slot]),
+                None if plan.block_tables is None
+                else plan.block_tables[ch.slot],
+                -1 if plan.state_tables is None
+                else int(plan.state_tables[ch.slot]),
                 _chunk_extra(req.extra, int(req.tokens.size), ch.lo, ch.hi,
-                             self.chunk), rows=np.array([ch.slot]))
+                             self.chunk))
             if ch.state_ckpt >= 0:
                 # checkpoint the state at this chunk's page-aligned
                 # frontier, for later prefix restores
@@ -824,7 +828,7 @@ class ModelRunner:
                                  ch.state_ckpt)
             if ch.samples:
                 with span(self.telemetry, "runner.sync", self._rid):
-                    row = logits[ch.slot, 0, :vocab].cpu().numpy()
+                    row = logits[0, 0, :vocab].cpu().numpy()
                 with span(self.telemetry, "runner.sample", self._rid):
                     tok = _sample_token(row, req.sampling, ch.rng)
                 sampled[ch.slot] = tok

@@ -255,10 +255,11 @@ class SwapIn:
 
 @dataclasses.dataclass(frozen=True)
 class PrefillChunk:
-    """One padded prefill chunk: request.tokens[lo:hi] into `slot`.
+    """One prefill chunk: request.tokens[lo:hi] into `slot`.
 
     `pos` is the full per-slot position vector at this chunk's point in
-    the plan (riding-along rows are masked by `active` at execution).
+    the plan (the runner reads `slot`'s entry: a chunk carries its slot's
+    row only).
     When `samples` is set the chunk completes the prompt and the runner
     samples the first generated token from the chunk's logits with `rng`;
     if that token equals `eos_token` the slot is dropped from this plan's

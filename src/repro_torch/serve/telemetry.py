@@ -169,7 +169,8 @@ class Histogram:
 #: raises instead of silently creating a fresh counter).
 SERVE_COUNTERS: dict[str, str] = {
     "decode_steps": "batched ragged decode steps executed",
-    "prefill_chunks": "padded prefill chunks executed",
+    "prefill_chunks": "prefill chunks executed",
+    "prefill_rows": "slot rows the prefill chunks carried, live or padding",
     "prefill_tokens": "prompt tokens actually prefilled (valid rows only)",
     "tokens_generated": "tokens sampled and committed across all requests",
     "preemptions": "residents evicted under pool pressure (swap or recompute)",

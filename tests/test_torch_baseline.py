@@ -291,3 +291,37 @@ def test_fp_caches_hold_k_in_the_model_dtype():
     assert dense["k"].shape == (2, tcfg.n_kv_heads, 25, tcfg.dh)
     assert paged["k"].dtype == dense["v"].dtype == tcfg.dtype
     assert paged["k"].data_ptr() != paged["v"].data_ptr()
+
+
+@pytest.mark.cuda
+def test_fp_attention_of_each_kv_head_alone_on_card():
+    """The full-precision serving attention of one row (a prefill chunk)
+    over every kv head of smollm-135m equals each kv head's alone, bit for
+    bit, as a tensor-parallel rank holding it computes it: on the card a
+    float32 GEMM rounds by its batch count, so each kv head is its own
+    product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-135m")                   # 9 / 3 heads of 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, device="cuda", generator=g).to(cfg.dtype)
+
+    q, k, v = rand(1, 9, 512, 64), rand(1, 3, 512, 64), rand(1, 3, 512, 64)
+    cache = {"k": rand(1, 3, 4097, 64), "v": rand(1, 3, 4097, 64)}
+    pos = torch.tensor([3000], device="cuda")
+    kw = dict(pos=pos, kv_len=pos + 512, block_tables=None, n_valid=None,
+              active=None, page_topn=None)
+    full = AB._attn_std(q, k, v, cfg=cfg, cache=dict(cache), **kw)
+    head = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1)
+    parts = [AB._attn_std(q[:, 3 * i:3 * i + 3], k[:, i:i + 1],
+                          v[:, i:i + 1], cfg=head,
+                          cache={n: c[:, i:i + 1].clone()
+                                 for n, c in cache.items()}, **kw)
+             for i in range(3)]
+    assert torch.equal(full, torch.cat(parts, 1))

@@ -90,11 +90,19 @@ def _serve(eng, reqs, gen=5):
     return [np.asarray(out[i]) for i in ids]
 
 
+def _counters(eng):
+    """Every serve counter. The JAX Engine counts no `prefill_rows`: the
+    port's chunks carry one row each, so its count is the JAX chunks'."""
+    jax_side = isinstance(eng, JEngine)
+    return {k: eng.stats["prefill_chunks" if jax_side and k == "prefill_rows"
+                         else k] for k in SERVE_COUNTERS}
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_run(binary):
     eng = JEngine(JCFG, _params(), _scfg(JServeConfig, binary=binary))
     toks = _serve(eng, _requests())
-    return toks, {k: eng.stats[k] for k in SERVE_COUNTERS}
+    return toks, _counters(eng)
 
 
 @pytest.mark.parametrize("path", list(PATHS))
@@ -108,7 +116,7 @@ def test_frames_engine_matches_jax_engine(path):
     got = _serve(eng, _requests())
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert {k: eng.stats[k] for k in SERVE_COUNTERS} == want_stats
+    assert _counters(eng) == want_stats
     assert eng.stats["prefill_chunks"] == 2 + 2 + 1
     assert eng.runner.graph_count() == 2
 
@@ -261,6 +269,41 @@ def test_frames_engine_on_card_matches_cpu(path):
         out[dev] = _serve(eng, _requests())
         assert eng.runner.graph_count() == 2
     for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_one_row_prefill_graph_equals_eager_on_card(path):
+    """Frames and token chunks through the one-row prefill graph and the
+    eager step: the logits of every chunk bit for bit (a frames chunk on
+    slot 0, a token chunk on slot 2, slot 0's second frames chunk), then
+    the served tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((1, 16, FD)).astype(np.float32)
+    toks = rng.integers(0, 64, 16).astype(np.int32)
+    bt = np.arange(18, dtype=np.int32).reshape(3, 6)
+    chunks = [(0, toks[:8], 0, {"frames": frames[:, :8]}),
+              (2, toks[:5], 0, None), (0, toks[8:], 8,
+                                       {"frames": frames[:, 8:]})]
+    logits, served = [], []
+    for eager in (False, True):
+        eng = Engine(TCFG, _model(), _scfg(ServeConfig, **PATHS[path]),
+                     device="cuda", eager=eager)
+        paged = eng.scfg.paged
+        logits.append([eng.runner.prefill_step(
+            slot, t, pos, bt[slot] if paged else None, -1, extra).clone()
+            for slot, t, pos, extra in chunks])
+        assert eng.runner._inputs["prefill"].views["tokens"].shape == (1, 8)
+        eng = Engine(TCFG, _model(), _scfg(ServeConfig, **PATHS[path]),
+                     device="cuda", eager=eager)
+        served.append(_serve(eng, _requests()))
+        assert eng.runner.graph_count() == (0 if eager else 2)
+    for a, b in zip(*logits):
+        assert torch.equal(a, b)
+    for a, b in zip(*served):
         np.testing.assert_array_equal(a, b)
 
 

@@ -1,13 +1,16 @@
-"""The runner's step as captured CUDA graphs: one for the padded prefill
-chunk and one for the decode step (the port's form of the JAX runner's
-one-prefill + one-decode trace pin), fed from static input buffers.
+"""The runner's step as captured CUDA graphs: one for a prefill chunk,
+which carries its slot's row only, and one for the decode step (the
+port's form of the JAX runner's one-prefill + one-decode trace pin), fed
+from static input buffers.
 
 On the CPU, which has no graphs, the same static-buffer path runs and
-counts its step kinds: 2 after prompts of several lengths on every path,
-the same tokens as the eager step, and a warm-up that leaves pages
-[0, n_pages) and positions [0, max_len) untouched. On the card (the
-`cuda` marker): graph == eager bit for bit, two captures across prompt
-lengths, and kernel launches counted through replays.
+counts its step kinds: 2 after prompts of several lengths on every path
+and through the lockstep prefill, the same tokens as the eager step, a
+one-row prefill input, a chunk that leaves every other slot's pages and
+rows unchanged, and a warm-up that leaves pages [0, n_pages) and
+positions [0, max_len) untouched. On the card (the `cuda` marker): graph
+== eager bit for bit, two captures across prompt lengths, and kernel
+launches counted through replays.
 """
 import numpy as np
 import pytest
@@ -41,6 +44,30 @@ def _engine(kw, device="cpu", eager=False, model=None, slots=2):
     model = _model() if model is None else model
     return Engine(tcfg, model, _scfg(ServeConfig, slots, **kw),
                   device=device, eager=eager)
+
+
+def _randomize(caches, seed=0) -> None:
+    """Fill every cache leaf with seeded noise, in place."""
+    gen = torch.Generator().manual_seed(seed)
+    for cache in caches:
+        for buf in cache.values():
+            if buf.dtype == torch.int32:
+                buf.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, buf.shape,
+                                        generator=gen, dtype=torch.int32))
+            else:
+                buf.copy_(torch.randn(buf.shape, generator=gen))
+
+
+def _clone(caches) -> list[dict]:
+    return [{k: v.clone() for k, v in c.items()} for c in caches]
+
+
+def _rows_changed(before, caches) -> list[set[int]]:
+    """Per layer, the rows (axis 0: pages, slots or state entries) in
+    which any leaf differs from `before`."""
+    return [{i for name, buf in new.items() for i in range(buf.shape[0])
+             if not torch.equal(buf[i], old[name][i])}
+            for old, new in zip(before, caches)]
 
 
 # ---------------------------------------------------------------------------
@@ -83,15 +110,8 @@ def test_warmup_leaves_real_pages_and_positions_unchanged(paged, binary):
     Its writes land in the trash page or position only."""
     eng = _engine(dict(paged=paged, binary=binary))
     runner = eng.runner
-    gen = torch.Generator().manual_seed(0)
-    for cache in runner.caches:
-        for name, buf in cache.items():
-            if buf.dtype == torch.int32:
-                buf.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, buf.shape,
-                                        generator=gen, dtype=torch.int32))
-            else:
-                buf.copy_(torch.randn(buf.shape, generator=gen))
-    before = [{k: v.clone() for k, v in c.items()} for c in runner.caches]
+    _randomize(runner.caches)
+    before = _clone(runner.caches)
     for kind in ("prefill", "decode"):
         runner._capture(kind)
     for old, new in zip(before, runner.caches):
@@ -103,6 +123,66 @@ def test_warmup_leaves_real_pages_and_positions_unchanged(paged, binary):
             # the writes did happen, into the trash
             assert not torch.equal(buf.narrow(axis, real, 1),
                                    old[name].narrow(axis, real, 1)), name
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_prefill_inputs_are_one_slot_row(path):
+    """A prefill chunk stages its slot's row only: tokens [1, chunk], pos,
+    active and n_valid [1], and the slot's block table row (paged) or
+    its `slot` (dense); the decode step stages every slot. After a served
+    mix every chunk carried one row: prefill_rows == prefill_chunks."""
+    eng = _engine(PATHS[path], slots=3)
+    _serve(eng, _prompts(LENGTHS, seed=7), 3)
+    v = eng.runner._inputs["prefill"].views
+    assert v["tokens"].shape == (1, eng.scfg.prefill_chunk)
+    assert [v[k].shape for k in ("pos", "active", "n_valid")] == [(1,)] * 3
+    if eng.scfg.paged:
+        assert v["tables"].shape == (1, 48 // 8) and "slot" not in v
+    else:
+        assert v["slot"].shape == (1,) and "tables" not in v
+    assert eng.runner._inputs["decode"].views["tokens"].shape == (3, 1)
+    st = eng.stats
+    assert st["prefill_rows"] == st["prefill_chunks"] > len(LENGTHS)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_lockstep_prefill_replays_one_row_a_slot(path):
+    """Engine.prefill replays the one-row chunk once a slot a chunk: still
+    two step kinds after it and decode(), slots x chunks rows, and the
+    greedy tokens of the served path."""
+    prompts = _prompts((19, 19, 19), seed=8)            # 3 chunks of 8
+    eng = _engine(PATHS[path], slots=3)
+    logits = eng.prefill(np.stack(prompts))
+    assert logits.shape == (3, eng.cfg.vocab_size)
+    assert eng.stats["prefill_rows"] == eng.stats["prefill_chunks"] == 9
+    toks = [logits.argmax(-1)]
+    for _ in range(2):
+        toks.append(eng.decode(toks[-1].numpy().astype(np.int32))
+                    .argmax(-1))
+    assert eng.runner.graph_count() == 2
+    want = _serve(_engine(PATHS[path], slots=3), prompts, 3)
+    np.testing.assert_array_equal(torch.stack(toks, 1).numpy(),
+                                  np.stack(want))
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_chunk_leaves_other_slots_unchanged(path):
+    """A chunk on slot 1 (5 tokens at position 8: its second page), after
+    the step's warm-up, writes that page, or that dense row, and the
+    trash page its padding goes to; every other page, and every other
+    slot's dense row, bit for bit as before."""
+    eng = _engine(PATHS[path], slots=3)
+    runner = eng.runner
+    table = np.array([4, 9, -1, -1, -1, -1], np.int32)
+    paged = eng.scfg.paged
+    args = (1, _prompts((5,), seed=9)[0], 8, table if paged else None)
+    runner.prefill_step(*args)          # the warm-up writes the trash
+    _randomize(runner.caches)
+    before = _clone(runner.caches)
+    runner.prefill_step(*args)
+    trash = runner.n_pages
+    for changed in _rows_changed(before, runner.caches):
+        assert changed == ({9, trash} if paged else {1})
 
 
 def test_step_inputs_share_one_buffer():
@@ -156,19 +236,16 @@ def _drive(runner, steps):
 
 
 def _steps(cfg, paged):
-    """Two prefill chunks (one per slot, the other row idle), then three
-    decode steps of both slots."""
+    """Two prefill chunks (one per slot), then three decode steps of both
+    slots."""
     rng = np.random.default_rng(9)
     bt = np.array([[0, 3, 5, -1, -1, -1], [1, 2, -1, -1, -1, -1]],
                   np.int32) if paged else None
     steps = []
     for slot, nv in ((0, 8), (1, 5)):
-        tok = np.zeros((2, 8), np.int32)
-        tok[slot, :nv] = rng.integers(0, cfg.vocab_size, nv)
-        steps.append(("prefill", (tok, np.zeros(2, np.int32),
-                                  np.arange(2) == slot,
-                                  np.where(np.arange(2) == slot, nv,
-                                           0).astype(np.int32), bt)))
+        tok = rng.integers(0, cfg.vocab_size, nv).astype(np.int32)
+        steps.append(("prefill", (slot, tok, 0,
+                                  None if bt is None else bt[slot])))
     for i in range(3):
         steps.append(("decode", (rng.integers(0, cfg.vocab_size, 2).astype(
             np.int32), np.array([8 + i, 5 + i], np.int32), np.ones(2, bool),

@@ -437,7 +437,9 @@ def test_copied_scheduler_plans_equal_reference(kw, reclaims):
         assert _canon(fins[1]) == _canon(fins[0])
     else:
         raise AssertionError("schedulers did not drain")
-    assert dict(scheds[1].stats) == dict(scheds[0].stats)
+    # the port counts the rows its runner's prefill chunks carry too;
+    # a scheduler runs no chunk
+    assert dict(scheds[1].stats) == dict(scheds[0].stats, prefill_rows=0)
     assert seen == reclaims
 
 

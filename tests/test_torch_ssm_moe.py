@@ -42,6 +42,8 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.telemetry import SERVE_COUNTERS
 
+from test_torch_graphs import _clone, _randomize, _rows_changed
+
 MAMBA, JAMBA, DBRX = "mamba2-130m", "jamba-1.5-large-398b", "dbrx-132b"
 LOGIT_TOL = dict(rtol=1e-4, atol=2e-5)   # float32, XLA vs ATen sum order
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -379,7 +381,11 @@ def _serve(eng, prompts, gen=5, one_by_one=False):
 
 
 def _counters(eng):
-    return {k: eng.stats[k] for k in SERVE_COUNTERS}
+    """Every serve counter. The JAX Engine counts no `prefill_rows`: the
+    port's chunks carry one row each, so its count is the JAX chunks'."""
+    jax_side = isinstance(eng, JEngine)
+    return {k: eng.stats["prefill_chunks" if jax_side and k == "prefill_rows"
+                         else k] for k in SERVE_COUNTERS}
 
 
 def _statepool(eng):
@@ -582,6 +588,65 @@ def test_graph_equals_eager_on_card(cuda, arch, path):
         outs.append(_serve(eng, _requests()))
         assert eng.runner.graph_count() == (0 if eager else 2)
     _equal(*outs)
+
+
+@pytest.mark.parametrize("path", list(ENGINE_PATHS))
+def test_chunk_leaves_other_slots_state_unchanged(path):
+    """A fresh chunk on slot 1 (position 0; state entry 2 in the paged
+    engine's state pool) of reduced jamba, after the step's warm-up,
+    writes slot 1's dense rows, or its page, the trash page its padding
+    goes to and its state entry; every other slot's rows, page and state
+    entry bit for bit as before."""
+    eng = _engine(JAMBA, slots=3, **ENGINE_PATHS[path])
+    runner = eng.runner
+    paged = eng.scfg.paged
+    table = np.array([7, -1, -1, -1, -1, -1], np.int32)
+    args = (1, _requests((5,), seed=2)[0], 0, table if paged else None, 2)
+    runner.prefill_step(*args)          # the warm-up writes the trash
+    _randomize(runner.caches)
+    before = _clone(runner.caches)
+    runner.prefill_step(*args)
+    for i, rows in enumerate(_rows_changed(before, runner.caches)):
+        if not paged:
+            want = {1}
+        elif i in runner._state_layers:
+            want = {2}
+        else:
+            want = {7, runner.n_pages}
+        assert rows == want, i
+
+
+def _chunks(cfg, paged):
+    """prefill_step arguments: a full chunk on slot 0, a 5-token chunk on
+    slot 1, then slot 0's second chunk (its state carried)."""
+    rng = np.random.default_rng(4)
+    bt = np.array([[0, 3, -1, -1, -1, -1], [1, -1, -1, -1, -1, -1]],
+                  np.int32)
+    return [(slot, rng.integers(0, cfg.vocab_size, nv).astype(np.int32),
+             pos, bt[slot] if paged else None, slot)
+            for slot, nv, pos in ((0, 8, 0), (1, 5, 0), (0, 8, 8))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["binary-paged", "binary-dense",
+                                  "fp-paged"])
+def test_one_row_prefill_graph_equals_eager_on_card(cuda, path):
+    """The one-row prefill graph of reduced jamba (SSM state carried
+    between a slot's chunks, pooled or dense) against the eager step: the
+    logits of every chunk bit for bit, tokens [1, chunk] staged."""
+    model = _model(JAMBA).to(cuda)
+    logits = []
+    for eager in (False, True):
+        eng = Engine(_cfgs(JAMBA)[1], model,
+                     _scfg(ServeConfig, 2, **ENGINE_PATHS[path]),
+                     device=cuda, eager=eager)
+        logits.append([eng.runner.prefill_step(*args).clone()
+                       for args in _chunks(eng.cfg, eng.scfg.paged)])
+        assert eng.runner.graph_count() == (0 if eager else 1)
+        assert eng.runner._inputs["prefill"].views["tokens"].shape == (1, 8)
+        assert eng.stats["prefill_rows"] == eng.stats["prefill_chunks"] == 3
+    for a, b in zip(*logits):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

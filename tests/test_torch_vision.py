@@ -98,7 +98,11 @@ def _serve(eng, reqs, gen=5):
 
 
 def _counters(eng):
-    return {k: eng.stats[k] for k in SERVE_COUNTERS}
+    """Every serve counter. The JAX Engine counts no `prefill_rows`: the
+    port's chunks carry one row each, so its count is the JAX chunks'."""
+    jax_side = isinstance(eng, JEngine)
+    return {k: eng.stats["prefill_chunks" if jax_side and k == "prefill_rows"
+                         else k] for k in SERVE_COUNTERS}
 
 
 # ---------------------------------------------------------------------------
