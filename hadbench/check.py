@@ -1,9 +1,10 @@
 """How `correct` is decided: once the window has closed and the program
 is freed, a sample drawn from the seed of the requests that were served
 (the one with the longest context always among them) is run through the
-plain float32 reference (`hadbench.reference`), each prompt with the
-tokens the program served after it, and at every served token the gap
-by which its reference logit lies below the reference's best is read.
+plain float32 reference of the cell's model module (`hadbench.reference`),
+each prompt with the tokens the program served after it, and at every
+served token the gap by which its reference logit lies below the
+reference's best is read.
 `numbers` reads them four ways: the widest gap (`gap_max`, in logits),
 the mean gap (`gap_mean`), the share of served tokens that are not the
 reference's best (`mismatch`) and the share whose gap exceeds a set
@@ -20,7 +21,6 @@ import numpy as np
 import torch
 
 from hadbench.loops import rng
-from hadbench.reference.model import Reference
 
 
 def sample(records, seed: int, k: int) -> list:
@@ -70,16 +70,18 @@ def numbers(g: np.ndarray, over: float | None = None) -> dict:
     return out
 
 
-def served_gaps(port: dict, recs, *, seed: int, max_len: int, device,
-                quant: str | None = None) -> np.ndarray:
-    """Every gap of the served tokens of `recs` (with `quant`: of the
-    tokens that reference puts first, read on the float32 one)."""
+def served_gaps(module, port: dict, recs, *, seed: int, max_len: int,
+                device, quant: str | None = None) -> np.ndarray:
+    """Every gap of the served tokens of `recs` on the `Reference` of
+    `module`, the cell's model module (``hadbench.reference``) (with
+    `quant`: of the tokens that reference puts first, read on the float32
+    one)."""
     seqs, pos, served = sequences(recs)
-    ref = Reference(port, seed=seed, max_len=max_len, device=device)
+    ref = module.Reference(port, seed=seed, max_len=max_len, device=device)
     base = ref.logits(seqs, pos)
     if quant is not None:
-        low = Reference(port, seed=seed, max_len=max_len, device=device,
-                        quant=quant).logits(seqs, pos)
+        low = module.Reference(port, seed=seed, max_len=max_len,
+                               device=device, quant=quant).logits(seqs, pos)
         served = [lg.argmax(-1).cpu().numpy() for lg in low]
         del low
     out = [gaps(lg, s) for lg, s in zip(base, served)]

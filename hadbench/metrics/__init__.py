@@ -22,20 +22,20 @@ def mean_ms(values) -> float | None:
 
 def step_mfu(ctx, kind: str) -> float | None:
     """% of the bf16 peak that the steps of `kind` reach: the FLOPs of
-    their live tokens (``hadbench.flops``; the head at each decode token
-    and at each chunk's last position) over their execute time."""
-    from hadbench import flops, peaks
+    their live tokens (the cell's model module's `flops_per_token`; the
+    head at each decode token and at each chunk's last position) over
+    their execute time."""
+    from hadbench import peaks
     steps = unprofiled(ctx, kind)
     secs = sum(s["execute"] for s in steps)
     if not steps or secs <= 0:
         return None
+    per_token = ctx.module.flops_per_token
     work = 0.0
     for s in steps:
-        work += sum(flops.per_token(ctx.port, n, ctx.n)
-                    for n in s["decode_lens"])
+        work += sum(per_token(ctx.port, n, ctx.n) for n in s["decode_lens"])
         for lo, hi in s["chunks"]:
-            work += sum(flops.per_token(ctx.port, p + 1, ctx.n,
-                                        head=p == hi - 1)
+            work += sum(per_token(ctx.port, p + 1, ctx.n, head=p == hi - 1)
                         for p in range(lo, hi))
     return 100.0 * work / (secs * peaks.BF16_FLOPS)
 

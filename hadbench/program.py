@@ -22,13 +22,15 @@ def model_config(port: dict) -> ModelConfig:
 
 
 @torch.no_grad()
-def build_model(port: dict, *, seed: int, device) -> T.Transformer:
-    """The model with every tensor drawn by `weights.draw` on `device`."""
+def build_model(port: dict, *, seed: int, device,
+                rules: dict | None = None) -> T.Transformer:
+    """The model with every tensor drawn by `weights.draw` on `device`,
+    through `rules` (the model module's ``draw_rules``) first."""
     cfg = model_config(port)
     model = T.Transformer(cfg, device=device)
     for name, p in model.named_parameters():
         p.copy_(weights.draw(name, p.shape, seed=seed, device=device,
-                             dtype=p.dtype))
+                             dtype=p.dtype, rules=rules))
     model.refresh_scales()
     return model
 

@@ -23,6 +23,10 @@ renormalised, and every token reaches all of its experts.
 computed from float8 (e4m3) operands, weights scaled per output column
 and activations per row, the step below the bf16 the configurations
 state.
+
+The default model module (``hadbench/reference/__init__.py``): its tensors,
+draws, FLOPs and attention layers are ``weights.param_specs``, the default
+draw, ``flops.per_token`` and every layer.
 """
 from __future__ import annotations
 
@@ -31,9 +35,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hadbench import weights
+from hadbench import flops, weights
 
 E4M3_MAX = 448.0
+
+param_specs = weights.param_specs
+draw_rules: dict = {}
+flops_per_token = flops.per_token
+
+
+def attn_layers(port: dict) -> int:
+    """Every layer is an attention layer."""
+    return port["n_layers"]
 
 
 def topn(port: dict, max_len: int) -> int:

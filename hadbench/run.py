@@ -100,6 +100,19 @@ def judge(got: dict, limits: dict, sound: bool) -> tuple[dict, bool]:
                                         for c in compared.values()))
 
 
+def kernel_shapes(port: dict, engine: dict, module) -> dict:
+    """The shapes the kernel work formulas (``kernels/``) read: the
+    attention widths, N, the pages and slots of the traffic's `engine`,
+    and the layers that launch K1 and K2 (`module`'s `attn_layers`)."""
+    from hadbench.reference.model import topn
+    return {"n_heads": port["n_heads"], "n_kv_heads": port["n_kv_heads"],
+            "head_dim": port["head_dim"],
+            "topn": topn(port, engine["max_len"]),
+            "page_size": engine.get("page_size", 16),
+            "attn_layers": module.attn_layers(port),
+            "batch_slots": engine["batch_slots"]}
+
+
 def warm_up(eng, seed: int, vocab: int) -> None:
     """Capture both step graphs (and build the kernels) on one request of
     two chunks and two new tokens."""
@@ -120,9 +133,8 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
     keep every gap read (``info.gap_values``, ``info.control_values``)."""
     import torch
 
-    from hadbench import check, driver, program, stats
+    from hadbench import check, driver, program, reference, stats
     from hadbench import trace as tr
-    from hadbench.reference.model import topn
     from repro_torch.serve.telemetry import Telemetry
     t_process = time.perf_counter() if t_process is None else t_process
     cuda = torch.device(device).type == "cuda"
@@ -130,11 +142,13 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
     torch.backends.cudnn.allow_tf32 = False
     port, traffic = cell["config"]["port"], cell["traffic"]
     engine_kw = traffic["engine"]
+    module = reference.module(cell["reference"])
     loop = importlib.import_module(f"hadbench.loops.{traffic['loop']}") \
         .make(traffic, seed=seed, vocab=port["vocab_size"], seconds=seconds)
 
     # set-up
-    model = program.build_model(port, seed=seed, device=device)
+    model = program.build_model(port, seed=seed, device=device,
+                                rules=module.draw_rules)
     tel = Telemetry(trace_capacity=1 << 20, clock=time.time) if trace \
         else None
     eng = program.build_engine(port, model, engine_kw, device=device,
@@ -165,7 +179,6 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
                    "memory_peak_bytes": (torch.cuda.max_memory_allocated()
                                          if cuda else 0)}
     metrics, extra = {}, {}
-    n = topn(port, engine_kw["max_len"])
     if not trace:
         for m in cell["end_to_end"]:
             v = setup_s if m["name"] == "setup_s" \
@@ -173,14 +186,9 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        shapes = {"n_heads": port["n_heads"],
-                  "n_kv_heads": port["n_kv_heads"],
-                  "head_dim": port["head_dim"], "topn": n,
-                  "page_size": engine_kw.get("page_size", 16),
-                  "attn_layers": port["n_layers"],
-                  "batch_slots": engine_kw["batch_slots"]}
+        shapes = kernel_shapes(port, engine_kw, module)
         ctx = tr.Context(tracer, tel.recorder.events()[k0:], port, shapes,
-                         n)
+                         shapes["topn"], module)
         for m in cell["per_layer"]:
             v = tr.reader(m["name"]).read(ctx)
             if v is not None:
@@ -209,7 +217,7 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     c0 = time.perf_counter()
     recs = check.sample(records, seed, traffic["check"]["requests"])
-    gaps = check.served_gaps(port, recs, seed=seed,
+    gaps = check.served_gaps(module, port, recs, seed=seed,
                              max_len=engine_kw["max_len"], device=device)
     over = cell["limits"].get("share_over", {}).get("gap")
     got = check.numbers(gaps, over)
@@ -221,7 +229,7 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
                               gaps.size > 0 and summary["failed"] == 0)
     if control is not None:
         # the control's tokens in the program's place, judged the same way
-        ctl = check.served_gaps(port, recs, seed=seed,
+        ctl = check.served_gaps(module, port, recs, seed=seed,
                                 max_len=engine_kw["max_len"], device=device,
                                 quant=control)
         ctl_got = check.numbers(ctl, over)

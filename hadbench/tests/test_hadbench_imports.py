@@ -40,15 +40,17 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_the_reference_imports_nothing_of_the_program():
     ref = [p for p in _modules() if "reference" in p.parts]
     assert ref
-    allowed = {"hadbench.weights"}
+    allowed = {"hadbench.weights", "hadbench.flops"}
     for path in ref:
         for m in _imports(path):
             assert m.split(".")[0] != "repro_torch", (path, m)
             if m.startswith("hadbench"):
                 assert m in allowed or m.startswith("hadbench.reference"), m
-    # what the reference draws its weights with imports no program either
-    assert not {m.split(".")[0] for m in _imports(HERE / "weights.py")} \
-        & {"repro_torch", "repro"}
+    # what the reference draws its weights with, and the FLOP formula its
+    # model module hands on, import no program either
+    for name in ("weights.py", "flops.py"):
+        assert not {m.split(".")[0] for m in _imports(HERE / name)} \
+            & {"repro_torch", "repro", "hadbench"}, name
 
 
 def test_run_names_jax_by_whole_top_level_names():

@@ -3,26 +3,34 @@ a dense and an MoE configuration, and the fp8 control failing where the
 port passes."""
 import numpy as np
 import pytest
+import torch
 
-from hadbench import check, program, run, tiny, weights
+from hadbench import check, manifest, program, reference, run, tiny, weights
 from hadbench.reference.model import Reference, topn
+
+BENCH = manifest.load()
 
 
 one_thread = pytest.fixture(autouse=True)(tiny.one_thread)
 
 
-@pytest.mark.parametrize("config", ["smollm-135m", "dbrx-132b-l8"])
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_weights_are_the_ports_parameters(config):
+    """The program's parameters are its configuration's model module's
+    `param_specs`, each drawn again alike by itself."""
     port = tiny.port(config)
-    model = program.build_model(port, seed=11, device="cpu")
+    mod = reference.module(
+        manifest.reference_name(manifest.read_json("configs", config)))
+    model = program.build_model(port, seed=11, device="cpu",
+                                rules=mod.draw_rules)
     got = {n: (tuple(p.shape), str(p.dtype).split(".")[1])
            for n, p in model.named_parameters()}
-    want = {n: (tuple(s), dt) for n, s, dt in weights.param_specs(port)}
+    want = {n: (tuple(s), dt) for n, s, dt in mod.param_specs(port)}
     assert got == want
-    p = dict(model.named_parameters())["blocks.1.mixer.wk"]
-    again = weights.draw("blocks.1.mixer.wk", p.shape, seed=11,
-                         device="cpu", dtype=p.dtype)
-    assert bool((p == again).all())
+    for name, p in model.named_parameters():
+        again = weights.draw(name, p.shape, seed=11, device="cpu",
+                             dtype=p.dtype, rules=mod.draw_rules)
+        assert torch.equal(p, again), name
 
 
 @pytest.mark.parametrize("config,prefix", [("smollm-135m", True),
@@ -53,9 +61,11 @@ def test_the_fp8_control_fails_where_the_port_passes():
             toks.append(int(ref.logits([seq], [[len(seq) - 1]])[0]
                             .argmax()))
         recs.append(type("R", (), {"prompt": prompt, "tokens": toks})())
-    sound = check.served_gaps(port, recs, seed=5, max_len=128, device="cpu")
-    ctl = check.served_gaps(port, recs, seed=5, max_len=128, device="cpu",
-                            quant="fp8")
+    mod = reference.module()
+    sound = check.served_gaps(mod, port, recs, seed=5, max_len=128,
+                              device="cpu")
+    ctl = check.served_gaps(mod, port, recs, seed=5, max_len=128,
+                            device="cpu", quant="fp8")
     assert sound.max() == 0.0
     assert ctl.max() > 1e-2
     assert topn(port, 128) == 16

@@ -13,9 +13,8 @@ import types
 
 import pytest
 
-from hadbench import driver, manifest, program, run, spans, tiny
+from hadbench import driver, manifest, program, reference, run, spans, tiny
 from hadbench import trace as tr
-from hadbench.reference.model import topn
 
 BENCH = manifest.load()
 BEFORE = ["sched_host_ms", "execute_ms.decode", "execute_ms.prefill",
@@ -53,13 +52,10 @@ def recorded():
     k0 = hub.recorder.recorded
     tracer = tr.Tracer(1.0, 1.0)
     driver.serve(eng, loop, 2.0, tracer=tracer)
-    n = topn(port, traffic["engine"]["max_len"])
-    shapes = {"n_heads": port["n_heads"], "n_kv_heads": port["n_kv_heads"],
-              "head_dim": port["head_dim"], "topn": n,
-              "page_size": traffic["engine"]["page_size"],
-              "attn_layers": port["n_layers"],
-              "batch_slots": traffic["engine"]["batch_slots"]}
-    yield tracer, hub.recorder.events()[k0:], (port, shapes, n), hub
+    module = reference.module(cell["reference"])
+    shapes = run.kernel_shapes(port, traffic["engine"], module)
+    yield (tracer, hub.recorder.events()[k0:],
+           (port, shapes, shapes["topn"], module), hub)
     next(threads, None)
 
 

@@ -13,11 +13,14 @@ WIDTHS = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 
 
 def port(config: str) -> dict:
-    """`config`'s port block at the tiny widths (MoE: 4 experts, top 2)."""
-    p = copy.deepcopy(manifest.read_json("configs", config)["port"])
+    """`config`'s port block at the tiny widths (MoE: 4 experts, top 2),
+    then the configuration file's own ``"tiny"`` overrides, if any."""
+    cfg = manifest.read_json("configs", config)
+    p = copy.deepcopy(cfg["port"])
     p.update(WIDTHS)
     if p.get("n_experts"):
         p.update(n_experts=4, experts_per_token=2)
+    p.update(copy.deepcopy(cfg.get("tiny", {})))
     return p
 
 
@@ -55,6 +58,8 @@ def cell(config: str = "smollm-135m", loop: str = "closed", *,
     bench = manifest.load()
     name = f"tiny.{config}.{loop}"
     return {"name": name, "chips": 1, "config": {"port": port(config)},
+            "reference": manifest.reference_name(
+                manifest.read_json("configs", config)),
             "traffic": traffic(loop, prefix=prefix),
             "limits": {"gap_max": {"limit": limit}},
             "end_to_end": bench["end_to_end"],

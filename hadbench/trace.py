@@ -144,12 +144,15 @@ class Context:
     """What a per-layer metric reader reads: `steps` (the window's steps:
     kind, host timings in seconds, prefill chunks (lo, hi), the live
     decode rows' key counts, whether profiled), `port` and `shapes` of
-    the cell, `n` (top-N), and, when the profiler ran, `kernel_s(names)`,
-    `busy_ns`, `window_ns`, `step_ns` and `step_idle_ns`."""
+    the cell, `n` (top-N), `module` (the cell's model module,
+    ``hadbench.reference``), and, when the profiler ran,
+    `kernel_s(names)`, `busy_ns`, `window_ns`, `step_ns` and
+    `step_idle_ns`."""
 
     def __init__(self, tracer: Tracer, events: list[dict], port: dict,
-                 shapes: dict, n: int):
+                 shapes: dict, n: int, module):
         self.port, self.shapes, self.n = port, shapes, n
+        self.module = module
         self.steps = []
         for st, ev in zip(tracer.steps, events):
             if not st["in_window"]:

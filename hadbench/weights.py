@@ -10,7 +10,9 @@ works out from a configuration's ``port`` block alone.
 Distributions: token embeddings normal at std 0.02 (the published
 initializer range); norm weights ones; float32 routers truncated normal
 at std 0.02; every other matrix truncated normal (+-2 sigma) at std
-fan_in ** -0.5, fan_in being its input width.
+fan_in ** -0.5, fan_in being its input width. A model module
+(``hadbench/reference/``) gives rules for the tensors this does not
+define, such as an SSM's per-head vectors.
 """
 from __future__ import annotations
 
@@ -28,13 +30,26 @@ def tensor_seed(seed: int, name: str) -> int:
     return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
 
 
-def draw(name: str, shape, *, seed: int, device, dtype) -> torch.Tensor:
-    """The tensor `name` of the run seeded `seed`, in `dtype`."""
+def draw(name: str, shape, *, seed: int, device, dtype,
+         rules: dict | None = None) -> torch.Tensor:
+    """The tensor `name` of the run seeded `seed`, in `dtype`. `rules` (a
+    model module's ``draw_rules``: name suffix -> fill(x, gen), which
+    fills the float32 tensor x from the tensor's generator gen and
+    returns it) come before the default, whose matrices need a fan-in:
+    any other tensor of fewer than two dimensions raises."""
     shape = tuple(int(s) for s in shape)
-    if name.endswith(".w"):                  # norm weights
+    rule = next((fill for suffix, fill in (rules or {}).items()
+                 if name.endswith(suffix)), None)
+    if rule is None and name.endswith(".w"):     # norm weights
         return torch.ones(shape, dtype=dtype, device=device)
+    if rule is None and len(shape) < 2:
+        raise ValueError(f"no draw for {name} {list(shape)}: the default "
+                         "draws matrices; give a rule in the model "
+                         "module's draw_rules")
     gen = torch.Generator(device=device).manual_seed(tensor_seed(seed, name))
     x = torch.empty(shape, dtype=torch.float32, device=device)
+    if rule is not None:
+        return rule(x, gen).to(dtype)
     if name == "embed":
         x.normal_(0.0, 0.02, generator=gen)
         return x.to(dtype)
