@@ -31,11 +31,17 @@ _MODULES = {
 ASSIGNED = list(_MODULES)[:10]
 PAPER = list(_MODULES)[10:]
 
+# configurations the port alone serves (the JAX package has no twin)
+PORT_ONLY = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 
 def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    modules = {**_MODULES, **PORT_ONLY}
+    if name not in modules:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(modules)}")
+    mod = importlib.import_module(f"repro_torch.configs.{modules[name]}")
     cfg: ModelConfig = mod.CONFIG
     if reduced:
         cfg = cfg.reduced()
@@ -46,4 +52,4 @@ def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
 
 
 def list_archs() -> list[str]:
-    return list(_MODULES)
+    return list(_MODULES) + list(PORT_ONLY)

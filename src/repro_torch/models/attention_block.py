@@ -79,21 +79,22 @@ class Attention(nn.Module):
         sigma = torch.tensor(cfg.had.sigma_init, dtype=torch.float32)
         self.register_buffer("sigma_q", sigma.clone().to(device))
         self.register_buffer("sigma_k", sigma.clone().to(device))
-        self.dh = dh
+        self.base_scale = cfg.attn_scale
         # from the host value: a module built on the meta device has none
-        self.scale = _logit_scale(sigma.item(), sigma.item(), dh)
+        self.scale = _logit_scale(sigma.item(), sigma.item(), self.base_scale)
 
     def refresh_scale(self) -> None:
-        """Recompute the float32 logit scale (sigma_q * sigma_k) * dh^-0.5
+        """Recompute the float32 logit scale (sigma_q * sigma_k) *
+        cfg.attn_scale (dh^-0.5, or the published attention_multiplier)
         from the sigma buffers. Called once when the weights are set, so
         the serving hot path never reads a device scalar back."""
         self.scale = _logit_scale(self.sigma_q.item(), self.sigma_k.item(),
-                                  self.dh)
+                                  self.base_scale)
 
 
-def _logit_scale(sigma_q: float, sigma_k: float, dh: int) -> float:
+def _logit_scale(sigma_q: float, sigma_k: float, base: float) -> float:
     sq, sk = np.float32(sigma_q), np.float32(sigma_k)
-    return float(np.float32(sq * sk) * np.float32(dh ** -0.5))
+    return float(np.float32(sq * sk) * np.float32(base))
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +161,7 @@ def attn_forward(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     if not cross:
         q, k = _rope(q, k, cfg)
     causal = cfg.causal and not cross
-    scale = cfg.dh ** -0.5
+    scale = cfg.attn_scale
     kv_valid = att.get("kv_valid_cross") if cross else att.get("kv_valid")
     if mode == "std" or not cfg.had.enabled:
         return _out(p, standard_attention(q, k, v, scale=scale, causal=causal,
@@ -224,7 +225,7 @@ def attn_forward_distill(pt: Attention, ps: Attention, xt: torch.Tensor,
     stage, c = _stage_c(att)
     qs, ks, qk_scale = _student_qk(ps, qs, ks, stage=stage, c=c)
     res = A.distill_pair_attention(
-        qt, kt, vt, qs, ks, vs, n=att["n"], scale=cfg.dh ** -0.5,
+        qt, kt, vt, qs, ks, vs, n=att["n"], scale=cfg.attn_scale,
         causal=cfg.causal and not cross,
         kv_valid=att.get("kv_valid_cross") if cross else att.get("kv_valid"),
         q_block=cfg.q_block, method=att.get("threshold_method"),
@@ -590,7 +591,7 @@ def _cross_attn(p: Attention, x: torch.Tensor, *, cfg: ModelConfig,
     q = (x @ p.wq).reshape(b, s, h, dh).transpose(1, 2)
     if not binary:
         return _out(p, standard_attention(
-            q, cache["k"], cache["v"], scale=dh ** -0.5, causal=False,
+            q, cache["k"], cache["v"], scale=cfg.attn_scale, causal=False,
             q_offset=pos).to(x.dtype), group)
     t = cache["v"].shape[2]
     # lengths as device fills, never host copies: a captured step holds them
@@ -671,5 +672,5 @@ def _attn_std(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = q.shape[1] // hk
     return torch.cat([standard_attention(
         q[:, i * g:(i + 1) * g], k_rows[:, i:i + 1], v_rows[:, i:i + 1],
-        scale=dh ** -0.5, causal=cfg.causal, q_offset=pos,
+        scale=cfg.attn_scale, causal=cfg.causal, q_offset=pos,
         kv_valid=kv_valid) for i in range(hk)], dim=1)

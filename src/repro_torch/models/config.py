@@ -3,9 +3,12 @@
 
 One ModelConfig covers every assigned architecture family (dense GQA, MoE,
 SSM, hybrid, VLM, encoder); configs/<arch>.py files instantiate it with the
-exact published hyperparameters. Every field, ``reduced()`` and
+exact published hyperparameters. Every field the JAX package has, ``reduced()`` and
 ``HADConfig.topn`` match the JAX package's; only ``dtype`` differs, naming
-a torch dtype.
+a torch dtype. The fields below "published Mamba2 mixer, shared expert and
+multipliers" are the port's own (the JAX package has no such model): their
+defaults add no operation, so every configuration that leaves them alone
+computes what the JAX package's does.
 """
 from __future__ import annotations
 
@@ -58,6 +61,24 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 64           # SSD chunk length
 
+    # --- published Mamba2 mixer, shared expert and multipliers (port) ---
+    # the Mamba2 mixer's form: "jax", the JAX package's (the conv over x
+    # alone, unbiased; rmsnorm(y) * silu(z)), or "published", Mamba2's
+    # (the conv, with a bias, over x, B and C together; the gate before
+    # the norm: rmsnorm(y * silu(z)))
+    ssm_mixer: Literal["jax", "published"] = "jax"
+    # a SwiGLU expert of this width that every token passes through, added
+    # to the routed experts' sum (published `shared_intermediate_size`)
+    shared_expert_width: int = 0
+    # token embeddings x embedding_multiplier; each mixer's and FFN's
+    # output x residual_multiplier before it joins the residual stream;
+    # logits / logits_scaling; attention_multiplier replaces head_dim^-0.5
+    # as the logit scale (0: head_dim^-0.5). 1 (0) adds no operation.
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+
     # --- layer pattern (hybrid / vlm) ---
     # string over {'A': attention, 'M': mamba, 'C': cross-attention};
     # n_layers % len(pattern) == 0; the pattern repeats in groups and the
@@ -97,6 +118,7 @@ class ModelConfig:
             assert self.n_heads % max(self.n_kv_heads, 1) == 0
         assert self.n_layers % len(self.layer_pattern) == 0, \
             (self.name, self.n_layers, self.layer_pattern)
+        assert self.ssm_mixer in ("jax", "published"), self.ssm_mixer
 
     @property
     def padded_vocab(self) -> int:
@@ -132,6 +154,19 @@ class ModelConfig:
         return not self.causal
 
     @property
+    def attn_scale(self) -> float:
+        """The attention logit scale before HAD's sigmas: the published
+        attention_multiplier, or head_dim^-0.5."""
+        return self.attention_multiplier or self.dh ** -0.5
+
+    @property
+    def ssm_conv_width(self) -> int:
+        """Channels of the SSM's depthwise conv: x (d_inner), plus B and C
+        (2 ssm_state) in the published mixer."""
+        return self.d_inner + (2 * self.ssm_state
+                                if self.ssm_mixer == "published" else 0)
+
+    @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -155,6 +190,7 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16),
             ssm_head_dim=16 if self.ssm_state else 64,
             ssm_chunk=8,
+            shared_expert_width=min(self.shared_expert_width, 128),
             n_image_tokens=min(self.n_image_tokens, 8),
             frontend_dim=min(self.frontend_dim, 32) if self.frontend_dim else 0,
             param_dtype="float32",

@@ -17,6 +17,14 @@ step's, as CUDA graphs need), every expert runs one batched matmul over
 its G * cap rows, and each token sums its k outputs weighted by its gates
 rounded to the model dtype. The results equal the contraction's: every
 buffer row holds one token or zeros, and only kept rows are read back.
+
+The gates are the top k of a softmax over every expert, renormalised:
+exactly the softmax over the top k logits (each is exp(l_i) over the sum
+of the chosen exp(l_j)), which is how Granite's gate is published (top k
+logits, then their softmax) and DBRX's (softmax, top k, then a sum-1
+norm); the two orders differ in float32 rounding only. A config with a
+`shared_expert_width` adds a SwiGLU expert of that width that every
+token passes through (``ws1``, ``ws2``, ``ws3``) to the routed sum.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
 GROUP_SIZE = 512
@@ -32,7 +41,8 @@ GROUP_SIZE = 512
 class MoE(nn.Module):
     """One MoE FFN's weights, named as the JAX tree's: a float32 router
     [D, E] and stacked expert weights w1 [E, D, F], w2 [E, F, D] and, for
-    SwiGLU, w3 [E, D, F]."""
+    SwiGLU, w3 [E, D, F]; with a shared expert of width Fs, ws1 / ws3
+    [D, Fs] and ws2 [Fs, D]."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -47,6 +57,10 @@ class MoE(nn.Module):
         self.w1 = weight(e, d, f)
         self.w2 = weight(e, f, d)
         self.w3 = weight(e, d, f) if cfg.act == "swiglu" else None
+        fs = cfg.shared_expert_width
+        self.ws1 = weight(d, fs) if fs else None
+        self.ws2 = weight(fs, d) if fs else None
+        self.ws3 = weight(d, fs) if fs else None
 
 
 def group_shape(tokens: int, cfg: ModelConfig) -> tuple[int, int, int]:
@@ -97,7 +111,13 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
     g, tg, cap = group_shape(b * s, cfg)
     xg = x.reshape(g, tg, d)
     gates, experts = route(p, xg, cfg)
-    return _experts(p, xg, gates, experts, cap, cfg).reshape(b, s, d)
+    y = _experts(p, xg, gates, experts, cap, cfg).reshape(b, s, d)
+    return y if p.ws1 is None else y + shared_expert(p, x)
+
+
+def shared_expert(p: MoE, x: torch.Tensor) -> torch.Tensor:
+    """The shared SwiGLU expert every token passes through."""
+    return common.mlp(p.ws1, p.ws2, p.ws3, x, act="swiglu")
 
 
 def moe_ffn_train(p: MoE, x: torch.Tensor, *, cfg: ModelConfig,
@@ -112,14 +132,16 @@ def moe_ffn_train(p: MoE, x: torch.Tensor, *, cfg: ModelConfig,
     g, tg, cap = train_group_shape(b * s, cfg, group_size)
     xg = x.reshape(g, tg, d)
     probs, gates, experts = _route(p, xg, cfg)
-    y = _experts(p, xg, gates, experts, cap, cfg)
+    y = _experts(p, xg, gates, experts, cap, cfg).reshape(b, s, d)
+    if p.ws1 is not None:
+        y = y + shared_expert(p, x)
     # a comparison, as _experts builds its one-hots: F.one_hot is a
     # scatter on the CPU and the card but not on the meta device, so the
     # dry run's counts would differ by device
     top1 = (experts[..., 0, None] == torch.arange(e, device=x.device)
             ).to(torch.float32)
     aux = e * (top1.mean((0, 1)) * probs.mean((0, 1))).sum()
-    return y.reshape(b, s, d), aux
+    return y, aux
 
 
 def _experts(p: MoE, xg: torch.Tensor, gates: torch.Tensor,

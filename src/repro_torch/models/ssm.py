@@ -13,9 +13,17 @@ carried state. The SSD math runs in float32, as in the JAX package, whose
 counterpart of every function here is computed outside any kernel.
 
 A layer's serving state is {"h": float32 [B, NH, N, P], "conv": [B, K-1,
-d_inner]} (the last K-1 conv inputs). Pooled state keeps the same layout
-with the batch axis repurposed as state entries (plus the port's trash
-entry), read and written through `state_read` / `state_write`.
+C]} (the last K-1 conv inputs, C = cfg.ssm_conv_width). Pooled state keeps
+the same layout with the batch axis repurposed as state entries (plus the
+port's trash entry), read and written through `state_read` /
+`state_write`.
+
+Two forms of the mixer, chosen by `cfg.ssm_mixer`. "jax", the JAX
+package's (the default): the conv runs over x alone, unbiased, then
+rmsnorm(y) * silu(z). "published", the published Mamba2 mixer (as
+granite-4.0-h-small): the conv, with its bias, runs over x, B and C
+together and silu follows on all three, and the gated norm is
+rmsnorm(y * silu(z)).
 """
 from __future__ import annotations
 
@@ -32,8 +40,9 @@ CONV_K = 4                        # the depthwise conv's kernel size
 class SSM(nn.Module):
     """One Mamba2 mixer's weights, named as the JAX tree's: w_in [D,
     2 d_inner + 2 N + NH] (x, z, B, C, dt), w_out [d_inner, D], conv_w
-    [4, d_inner], the gated RMSNorm's weight `norm` [d_inner], and the
-    float32 per-head A_log, D and dt_bias [NH]."""
+    [4, C] (C = cfg.ssm_conv_width) and, in the published mixer, conv_b
+    [C], the gated RMSNorm's weight `norm` [d_inner], and the float32
+    per-head A_log, D and dt_bias [NH]."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -50,7 +59,9 @@ class SSM(nn.Module):
         self.A_log = weight(nh, dtype=torch.float32)
         self.D = weight(nh, dtype=torch.float32)
         self.dt_bias = weight(nh, dtype=torch.float32)
-        self.conv_w = weight(CONV_K, di)
+        self.conv_w = weight(CONV_K, cfg.ssm_conv_width)
+        self.conv_b = (weight(cfg.ssm_conv_width)
+                       if cfg.ssm_mixer == "published" else None)
         self.norm = weight(di)
 
 
@@ -60,7 +71,7 @@ def init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
         "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state,
                           cfg.ssm_head_dim), dtype=torch.float32,
                          device=device),
-        "conv": torch.zeros((batch, CONV_K - 1, cfg.d_inner),
+        "conv": torch.zeros((batch, CONV_K - 1, cfg.ssm_conv_width),
                             dtype=cfg.dtype, device=device)}
 
 
@@ -75,8 +86,10 @@ def _split_in(p: SSM, x: torch.Tensor, cfg: ModelConfig):
 
 def _conv_causal(xs: torch.Tensor, w: torch.Tensor,
                  state: torch.Tensor | None = None,
-                 n_valid: torch.Tensor | None = None):
-    """Depthwise causal conv, kernel size K. xs: [B, S, Di]; w: [K, Di].
+                 n_valid: torch.Tensor | None = None,
+                 bias: torch.Tensor | None = None):
+    """Depthwise causal conv, kernel size K. xs: [B, S, Di]; w: [K, Di];
+    bias [Di] or None.
 
     Returns (silu(y), new_state [B, K-1, Di], the last K-1 inputs).
     `n_valid` ([B] int, optional): rows whose last S - n_valid inputs are
@@ -89,6 +102,8 @@ def _conv_causal(xs: torch.Tensor, w: torch.Tensor,
            if state is None else state.to(xs.dtype))
     xp = torch.cat([pad, xs], dim=1)                      # [B, S+K-1, Di]
     y = sum(xp[:, i:i + s] * w[i] for i in range(k))
+    if bias is not None:
+        y = y + bias
     if k <= 1:
         new_state = pad
     elif n_valid is None:
@@ -180,8 +195,28 @@ def ssd_step(xh: torch.Tensor, dt: torch.Tensor, bvec: torch.Tensor,
 
 def _gate_out(p: SSM, y: torch.Tensor, z: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    y = common.rmsnorm(p.norm, y, eps=cfg.norm_eps) * F.silu(z)
+    if cfg.ssm_mixer == "jax":
+        y = common.rmsnorm(p.norm, y, eps=cfg.norm_eps) * F.silu(z)
+    else:       # Mamba2's RMSNormGated: gate in float32, then the norm
+        g = y.to(torch.float32) * F.silu(z.to(torch.float32))
+        y = common.rmsnorm(p.norm, g, eps=cfg.norm_eps).to(y.dtype)
     return y @ p.w_out
+
+
+def _mix_in(p: SSM, x: torch.Tensor, cfg: ModelConfig, conv_state,
+            n_valid: torch.Tensor | None = None):
+    """The in-projection and the causal conv: (x, z, B, C, dt, new conv
+    state), x (and in the published mixer B and C) convolved and
+    silu'd."""
+    xs, z, bmat, cmat, dt = _split_in(p, x, cfg)
+    if cfg.ssm_mixer == "jax":
+        xs, conv = _conv_causal(xs, p.conv_w, conv_state, n_valid=n_valid)
+        return xs, z, bmat, cmat, dt, conv
+    xbc, conv = _conv_causal(torch.cat([xs, bmat, cmat], dim=-1), p.conv_w,
+                             conv_state, n_valid=n_valid, bias=p.conv_b)
+    n = cfg.ssm_state
+    xs, bmat, cmat = torch.split(xbc, [cfg.d_inner, n, n], dim=-1)
+    return xs, z, bmat, cmat, dt, conv
 
 
 def ssm_forward(p: SSM, x: torch.Tensor, *, cfg: ModelConfig,
@@ -197,10 +232,8 @@ def ssm_forward(p: SSM, x: torch.Tensor, *, cfg: ModelConfig,
     Returns (out [B, S, D], new state)."""
     b, s, _ = x.shape
     nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    xs, z, bmat, cmat, dt = _split_in(p, x, cfg)
-    xs, conv = _conv_causal(xs, p.conv_w,
-                            None if state is None else state["conv"],
-                            n_valid=n_valid)
+    xs, z, bmat, cmat, dt, conv = _mix_in(
+        p, x, cfg, None if state is None else state["conv"], n_valid)
     dt = _softplus(dt.to(torch.float32) + p.dt_bias)
     if n_valid is not None:
         valid = (torch.arange(s, device=x.device)[None, :]
@@ -221,8 +254,7 @@ def ssm_decode(p: SSM, x: torch.Tensor, *, cfg: ModelConfig,
     """A one-token step. x [B, 1, D]."""
     b = x.shape[0]
     nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    xs, z, bmat, cmat, dt = _split_in(p, x, cfg)
-    xs, conv = _conv_causal(xs, p.conv_w, state["conv"])
+    xs, z, bmat, cmat, dt, conv = _mix_in(p, x, cfg, state["conv"])
     dt = _softplus(dt.to(torch.float32) + p.dt_bias)[:, 0]
     a = -torch.exp(p.A_log)
     y, h = ssd_step(xs[:, 0].reshape(b, nh, hd), dt,

@@ -24,6 +24,11 @@ more than one layer, each layer inside it) under
 of `student_subset` is a `Transformer` whose trainable tensors are its
 own and whose other tensors are the teacher's, shared.
 
+Granite's multipliers (`embedding_multiplier`, `residual_multiplier`,
+`logits_scaling`; see models/config.py) act where the published model
+applies them: the token embeddings, each mixer's and FFN's output before
+the residual add, the logits. At 1 they add no operation.
+
 `serve_step` serves decoders on the binary path or the full-precision
 baseline, over the paged or the dense cache. Cross layers attend the
 image K/V of a static cache, filled from per-request image embeddings
@@ -132,9 +137,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     weights (stacked expert weights [E, ...] take E as their fan-in, as
     in the JAX package), normal * 0.02 for the embeddings (tokens and
     learned positions), ones for norms;
-    SSM layers: A_log 0, D 1, dt_bias 0, conv_w at std 0.5; MoE routers
-    float32 at std 0.02 (the JAX init's distributions; jax.random's
-    numbers differ). Drawn on the
+    SSM layers: A_log 0, D 1, dt_bias 0, conv_w at std 0.5, conv_b 0;
+    MoE routers float32 at std 0.02 (the JAX init's distributions;
+    jax.random's numbers differ). Drawn on the
     generator's device (a CPU generator by default; a CUDA generator draws
     a full-size model on the card, without the host copy), then moved to
     `device`. The numbers depend on the generator's device."""
@@ -168,8 +173,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             if cfg.d_ff > 0:
                 if isinstance(blk.ffn, moe.MoE):
                     dense(blk.ffn.router, scale=0.02)
-                for name in ("w1", "w2", "w3"):
-                    w = getattr(blk.ffn, name)
+                for name in ("w1", "w2", "w3", "ws1", "ws2", "ws3"):
+                    w = getattr(blk.ffn, name, None)
                     if w is not None:
                         dense(w)
     return model.to(device)
@@ -250,6 +255,22 @@ def student_tensors(cfg: ModelConfig,
 # training / evaluation forward
 # ---------------------------------------------------------------------------
 
+def _residual(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A mixer's or an FFN's output as it joins the residual stream."""
+    m = cfg.residual_multiplier
+    return y if m == 1.0 else y * m
+
+
+def _embed_scaled(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def _logits_scaled(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    m = cfg.logits_scaling
+    return logits if m == 1.0 else logits / m
+
+
 def _embed_inputs(model: Transformer, batch: dict,
                   cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings, or `frames` [B, S, frontend_dim] through
@@ -258,7 +279,7 @@ def _embed_inputs(model: Transformer, batch: dict,
     if "frames" in batch:
         x = batch["frames"].to(cfg.dtype) @ model.frontend_proj
     else:
-        x = model.embed[batch["tokens"].to(torch.int64)]
+        x = _embed_scaled(model.embed[batch["tokens"].to(torch.int64)], cfg)
     if cfg.pos == "learned":
         x = x + model.pos_embed[:x.shape[1]][None]
     return x
@@ -288,12 +309,12 @@ def _layer_fwd(blk: Block, x: torch.Tensor, kind: str, *, cfg: ModelConfig,
         mix = AB.attn_forward(blk.mixer, h, cfg=cfg, mode=mode, att=att,
                               x_kv=img if kind == "C" else None,
                               cross=kind == "C")
-    x = x + mix
+    x = x + _residual(mix, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff > 0:
         y, aux = _ffn(blk, common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps),
                       cfg)
-        x = x + y
+        x = x + _residual(y, cfg)
     return x, aux
 
 
@@ -330,8 +351,8 @@ def _final(model: Transformer, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _unembed(model: Transformer, h: torch.Tensor, cfg: ModelConfig):
-    return common.unembed(
-        h, model.embed.T if cfg.tie_embeddings else model.lm_head)
+    return _logits_scaled(common.unembed(
+        h, model.embed.T if cfg.tie_embeddings else model.lm_head), cfg)
 
 
 def _head(model: Transformer, x: torch.Tensor, cfg: ModelConfig):
@@ -427,22 +448,25 @@ def distill_hidden(teacher: Transformer, student: Transformer, batch: dict,
         ht = common.rmsnorm(bt.norm1.w, xt, eps=cfg.norm_eps)
         hs = common.rmsnorm(bs.norm1.w, xs, eps=cfg.norm_eps)
         if kind == "M":
-            xt = xt + ssm.ssm_forward(bt.mixer, ht, cfg=cfg)[0]
-            xs = xs + ssm.ssm_forward(bs.mixer, hs, cfg=cfg)[0]
+            xt = xt + _residual(ssm.ssm_forward(bt.mixer, ht, cfg=cfg)[0],
+                                cfg)
+            xs = xs + _residual(ssm.ssm_forward(bs.mixer, hs, cfg=cfg)[0],
+                                cfg)
         else:
             cross = kind == "C"
             yt, ys, kl_i, rows_i = AB.attn_forward_distill(
                 bt.mixer, bs.mixer, ht, hs, cfg=cfg, att=att,
                 xt_kv=img_t if cross else None,
                 xs_kv=img_s if cross else None, cross=cross)
-            xt, xs = xt + yt, xs + ys
+            xt, xs = xt + _residual(yt, cfg), xs + _residual(ys, cfg)
             kl, rows = kl + kl_i, rows + rows_i
         if cfg.d_ff > 0:
             ft, _ = _ffn(bt, common.rmsnorm(bt.norm2.w, xt,
                                             eps=cfg.norm_eps), cfg)
             fs, m = _ffn(bs, common.rmsnorm(bs.norm2.w, xs,
                                             eps=cfg.norm_eps), cfg)
-            xt, xs, acc = xt + ft, xs + fs, acc + m
+            xt, xs = xt + _residual(ft, cfg), xs + _residual(fs, cfg)
+            acc = acc + m
         return xt, xs, kl, rows, acc
 
     zero = torch.zeros((), dtype=torch.float32, device=teacher.embed.device)
@@ -672,7 +696,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
         fresh = active & (pos == 0)
     # every active cross row is filled when images ride along
     zero = fresh if image_embeds is None else None
-    x = model.embed[tokens.to(torch.int64)]                # [B, S, D]
+    x = _embed_scaled(model.embed[tokens.to(torch.int64)], cfg)  # [B,S,D]
     if frames is not None:
         fx = frames.to(cfg.dtype) @ model.frontend_proj
         x = fx if frames_rows is None else torch.where(
@@ -684,29 +708,30 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
     for kind, blk, cache in zip(layer_kinds(cfg), model.blocks, caches):
         h = common.rmsnorm(blk.norm1.w, x, eps=cfg.norm_eps)
         if kind == "M":
-            x = x + _ssm_serve(blk, h, cache, cfg=cfg, st=st, st_ok=st_ok,
-                               active=active, n_valid=n_valid, fresh=fresh,
-                               slots=slots)
+            mix = _ssm_serve(blk, h, cache, cfg=cfg, st=st, st_ok=st_ok,
+                             active=active, n_valid=n_valid, fresh=fresh,
+                             slots=slots)
         elif kind == "C":
             view = _cross_view(cache, st, st_ok, zero, slots)
-            x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=view,
-                                  pos=pos, n=n, binary=binary, cross=True,
-                                  group=group)
+            mix = AB.attn_serve(blk.mixer, h, cfg=cfg, cache=view, pos=pos,
+                                n=n, binary=binary, cross=True, group=group)
         else:
-            x = x + AB.attn_serve(blk.mixer, h, cfg=cfg, cache=cache,
-                                  pos=pos, n=n, block_tables=block_tables,
-                                  n_valid=n_valid, active=active,
-                                  page_topn=page_topn, binary=binary,
-                                  slots=slots, group=group)
+            mix = AB.attn_serve(blk.mixer, h, cfg=cfg, cache=cache, pos=pos,
+                                n=n, block_tables=block_tables,
+                                n_valid=n_valid, active=active,
+                                page_topn=page_topn, binary=binary,
+                                slots=slots, group=group)
+        x = x + _residual(mix, cfg)
         if marks is not None:
             marks(MIXER_REGIONS[kind])
         if cfg.d_ff > 0:
             h2 = common.rmsnorm(blk.norm2.w, x, eps=cfg.norm_eps)
             if isinstance(blk.ffn, moe.MoE):
-                x = x + moe.moe_ffn(blk.ffn, h2, cfg=cfg)
+                y = moe.moe_ffn(blk.ffn, h2, cfg=cfg)
             else:
-                x = x + common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,
-                                   act=cfg.act)
+                y = common.mlp(blk.ffn.w1, blk.ffn.w2, blk.ffn.w3, h2,
+                               act=cfg.act)
+            x = x + _residual(y, cfg)
             if marks is not None:
                 marks("moe" if isinstance(blk.ffn, moe.MoE) else "mlp")
     if logits_mode == "last":
@@ -717,7 +742,7 @@ def serve_step(model: Transformer, tokens: torch.Tensor, caches: list[dict],
             x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     x = common.rmsnorm(model.final_norm.w, x, eps=cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    logits = common.unembed_blocked(x, head)
+    logits = _logits_scaled(common.unembed_blocked(x, head), cfg)
     if logits.shape[-1] != cfg.padded_vocab:
         # a vocabulary-sharded lm_head: each column is a whole dot product
         # (the model dim is not split), so gathering the ranks' columns in

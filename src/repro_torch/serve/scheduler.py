@@ -132,6 +132,14 @@ class ServeConfig:
     # boundary. None auto-sizes (batch_slots, x4 with prefix_cache);
     # must be >= batch_slots (>= 2x with prefix_cache).
     state_pages: int | None = None
+    # Where a cacheable prefill takes its state checkpoints (pooled state
+    # with prefix_cache): "chunks", the JAX package's, at every chunk end
+    # that falls on a KV-page boundary; or "documents", only for prompts
+    # submitted to fill the cache (max_new_tokens 0), one at the prompt's
+    # last full-page boundary (its chunk is cut there), so a prompt that
+    # extends such a document restores at most page_size - 1 tokens short
+    # of its end, and no other prefill's checkpoint evicts it.
+    state_checkpoints: str = "chunks"
     # Priority tiers on the victim-policy hook: when True, requests
     # submitted with priority="latency" are never swapped out or
     # recompute-preempted while any "batch"-tier resident is a viable
@@ -344,6 +352,9 @@ class Scheduler:
         if scfg.victim_policy not in ("youngest", "longest-idle"):
             raise ValueError(
                 f"unknown victim_policy {scfg.victim_policy!r}")
+        if scfg.state_checkpoints not in ("chunks", "documents"):
+            raise ValueError(
+                f"unknown state_checkpoints {scfg.state_checkpoints!r}")
         if scfg.prefix_cache and not scfg.paged:
             raise ValueError("prefix_cache requires paged=True (pages are "
                              "the unit of sharing)")
@@ -422,6 +433,13 @@ class Scheduler:
         # against same-plan LRU eviction (the restore copy executes after
         # any would-be overwrite of a recycled entry)
         self._plan_state_pins: set[int] = set()
+
+    def _state_alloc(self, **kw) -> int | None:
+        """`StatePool.alloc`, counting the checkpoints it evicts."""
+        before = self.statepool.evictions
+        got = self.statepool.alloc(**kw)
+        self.stats["state_evictions"] += self.statepool.evictions - before
+        return got
 
     # ------------------------------------------------------------------
     # queue API
@@ -608,18 +626,26 @@ class Scheduler:
         s = int(req.tokens.size)
         lo = slot.prefill_pos
         hi = min(lo + self.chunk, s)
+        ckpts = (self.statepool is not None and self.prefix is not None
+                 and slot.cacheable)
+        if ckpts and self.scfg.state_checkpoints == "documents":
+            # one checkpoint, at the last full page of a prompt that asks
+            # for no token (it only fills the cache): its chunk ends there
+            tail = s // self.page * self.page
+            ckpts = req.max_new_tokens == 0 and lo < tail <= hi
+            if ckpts:
+                hi = tail
         if not self._ensure_pages(i, hi):
             return                      # slot itself reclaimed for pages
         pos = tuple(int(sl.length) for sl in self.slots)
         samples = hi == s and req.max_new_tokens > 0
         ckpt = -1
-        if (self.statepool is not None and self.prefix is not None
-                and slot.cacheable and hi % self.page == 0):
+        if ckpts and hi % self.page == 0:
             # the chunk ends exactly on a KV-page boundary: capture the
             # recurrent state there so a prefix hit on the page chain
             # [0, hi) can restore it. Best-effort — alloc may come up
             # empty when every spare entry is a pinned restore source.
-            got = self.statepool.alloc(evict_skip=self._plan_state_pins)
+            got = self._state_alloc(evict_skip=self._plan_state_pins)
             ckpt = -1 if got is None else got
         self._plan_chunks.append(PrefillChunk(
             slot=i, request=req, lo=lo, hi=hi, pos=pos, samples=samples,
@@ -1187,6 +1213,8 @@ class Scheduler:
                 if entry is not None:
                     best, src = j, entry
                     break
+            if best < len(pages):
+                self.stats["state_misses"] += 1
             for page in reversed(pages[best:]):
                 self.allocator.free(int(page))
             pages, keys = pages[:best], keys[:best]
@@ -1336,7 +1364,7 @@ class Scheduler:
                       length=entry["length"], state_page=slot.state_page)
 
     def _alloc_state_entry(self) -> int:
-        entry = self.statepool.alloc(evict_skip=self._plan_state_pins)
+        entry = self._state_alloc(evict_skip=self._plan_state_pins)
         if entry is None:
             raise RuntimeError(
                 "state pool exhausted allocating a live entry — "

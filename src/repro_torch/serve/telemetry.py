@@ -185,6 +185,9 @@ SERVE_COUNTERS: dict[str, str] = {
     "state_ckpts": "recurrent-state checkpoints registered at page boundaries",
     "state_restores": "warm admissions that restored a state checkpoint",
     "state_ckpt_bytes": "bytes copied capturing state checkpoints",
+    "state_evictions": "state checkpoints evicted to free their entries",
+    "state_misses": "prefix page matches cut short because no state "
+                    "checkpoint survived at their end",
     "decode_pages_touched": "KV pages whose V was read by decode steps",
     "decode_hbm_bytes": "estimated decode K+V HBM traffic, bytes",
     "pipelined_steps": "double-buffered steps dispatched before the "
@@ -411,7 +414,8 @@ _NUM = (int, float)
 EVENT_SCHEMA: dict[str, dict[str, tuple]] = {
     "meta": {"schema": (int,), "ts": _NUM, "note": (str,)},
     "step": {"step": (int,), "ts": _NUM,
-             "admissions": (list,),   # {slot,request_id,resume,cached_tokens}
+             "admissions": (list,),   # {slot,request_id,resume,cached_tokens,
+                                      #  state_restore}
              "prefill": (list,),      # {slot,request_id,lo,hi,samples}
              "decode": (list,),       # slot ids
              "reclaims": (list,),     # {kind,slot,request_id,n_pages}
@@ -518,7 +522,8 @@ def plan_event(plan, *, step: int, ts: float, timings: Mapping,
         "kind": "step", "step": int(step), "ts": float(ts),
         "admissions": _plan_rows(plan.admissions, {
             "slot": "slot", "request_id": "request.request_id",
-            "resume": "resume", "cached_tokens": "cached_tokens"}),
+            "resume": "resume", "cached_tokens": "cached_tokens",
+            "state_restore": "state_restore"}),
         "prefill": [{"slot": ch.slot,
                      "request_id": ch.request.request_id,
                      "lo": ch.lo, "hi": ch.hi, "samples": ch.samples}

@@ -40,6 +40,9 @@ from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.scheduler import Request
 from repro_torch.serve.telemetry import SERVE_COUNTERS
 
+# serve counters of the port alone
+PORT_COUNTERS = ("state_evictions", "state_misses")
+
 LOGIT_TOL = dict(rtol=1e-4, atol=2e-5)   # float32, XLA vs ATen sum order
 FD = 8                                   # frontend_dim
 # tests/test_serve_ragged.py's CFG, with a frontend
@@ -91,11 +94,13 @@ def _serve(eng, reqs, gen=5):
 
 
 def _counters(eng):
-    """Every serve counter. The JAX Engine counts no `prefill_rows`: the
-    port's chunks carry one row each, so its count is the JAX chunks'."""
+    """Every serve counter the JAX Engine has too (it counts no state
+    evictions or misses). It counts no `prefill_rows`: the port's chunks
+    carry one row each, so its count is the JAX chunks'."""
     jax_side = isinstance(eng, JEngine)
     return {k: eng.stats["prefill_chunks" if jax_side and k == "prefill_rows"
-                         else k] for k in SERVE_COUNTERS}
+                         else k] for k in SERVE_COUNTERS
+            if k not in PORT_COUNTERS}
 
 
 @functools.lru_cache(maxsize=None)

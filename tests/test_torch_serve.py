@@ -41,6 +41,10 @@ from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve import scheduler as S
 
 ARCH = "smollm-135m"
+# ModelConfig fields of the port alone (granite-4.0-h-small's)
+PORT_FIELDS = ("ssm_mixer", "shared_expert_width", "embedding_multiplier",
+               "residual_multiplier", "attention_multiplier",
+               "logits_scaling")
 LOGIT_TOL = dict(rtol=1e-4, atol=2e-5)   # float32, XLA vs ATen sum order
 JHAD = JHADConfig(use_kernels=True, kernel_block_q=8, kernel_block_t=16)
 
@@ -71,9 +75,16 @@ def _model(n_layers=1, seed=0):
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("arch", list_archs())
 def test_config_copy_field_for_field(arch, reduced):
+    """Every field the JAX package has, equal; the port's own fields (the
+    published Mamba2 mixer, shared expert and multipliers of a model the
+    JAX package lacks) at their defaults, which add no operation."""
     want = jget_config(arch, reduced=reduced)
     got = get_config(arch, reduced=reduced)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    got_d, want_d = dataclasses.asdict(got), dataclasses.asdict(want)
+    own = {f.name: f.default for f in dataclasses.fields(got)
+           if f.name not in want_d}
+    assert set(own) == set(PORT_FIELDS)
+    assert got_d == dict(want_d, **own)
     for prop in ("padded_vocab", "dh", "n_groups", "group_size",
                  "has_attention", "is_encoder", "d_inner", "ssm_heads"):
         assert getattr(got, prop) == getattr(want, prop), prop
@@ -437,9 +448,11 @@ def test_copied_scheduler_plans_equal_reference(kw, reclaims):
         assert _canon(fins[1]) == _canon(fins[0])
     else:
         raise AssertionError("schedulers did not drain")
-    # the port counts the rows its runner's prefill chunks carry too;
-    # a scheduler runs no chunk
-    assert dict(scheds[1].stats) == dict(scheds[0].stats, prefill_rows=0)
+    # the port counts the rows its runner's prefill chunks carry too (a
+    # scheduler runs no chunk), and state checkpoints evicted and prefix
+    # matches cut short for want of one (a stateless model takes none)
+    assert dict(scheds[1].stats) == dict(scheds[0].stats, prefill_rows=0,
+                                         state_evictions=0, state_misses=0)
     assert seen == reclaims
 
 

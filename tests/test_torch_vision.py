@@ -49,6 +49,9 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import AsyncEngine, Engine, ServeConfig
 from repro_torch.serve.telemetry import SERVE_COUNTERS
 
+# serve counters of the port alone
+PORT_COUNTERS = ("state_evictions", "state_misses")
+
 ARCH = "llama-3.2-vision-11b"
 LOGIT_TOL = dict(rtol=1e-4, atol=2e-5)   # float32, XLA vs ATen sum order
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -98,11 +101,13 @@ def _serve(eng, reqs, gen=5):
 
 
 def _counters(eng):
-    """Every serve counter. The JAX Engine counts no `prefill_rows`: the
-    port's chunks carry one row each, so its count is the JAX chunks'."""
+    """Every serve counter the JAX Engine has too (it counts no state
+    evictions or misses). It counts no `prefill_rows`: the port's chunks
+    carry one row each, so its count is the JAX chunks'."""
     jax_side = isinstance(eng, JEngine)
     return {k: eng.stats["prefill_chunks" if jax_side and k == "prefill_rows"
-                         else k] for k in SERVE_COUNTERS}
+                         else k] for k in SERVE_COUNTERS
+            if k not in PORT_COUNTERS}
 
 
 # ---------------------------------------------------------------------------
